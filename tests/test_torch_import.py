@@ -16,7 +16,8 @@ import torch
 
 import wavelets_tpu_torch as wtt
 from wavelets_tpu_torch import profiling
-from wavelets_tpu_torch.ops import build, level2d, pyramid2d, tail2d
+from wavelets_tpu_torch.ops import (build, dwt1d, level1d, level2d,
+                                    pyramid2d, tail1d, tail2d)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -34,8 +35,9 @@ def test_import_leaves_jax_out():
         "import sys\n"
         "import wavelets_tpu_torch\n"
         "import wavelets_tpu_torch.profiling\n"
-        "from wavelets_tpu_torch.ops import (bands, build, filter_fb, "
-        "level2d, lifting, pyramid2d, tail2d)\n"
+        "from wavelets_tpu_torch.ops import (bands, build, dwt1d, "
+        "filter_fb, level1d, level2d, lifting, pyramid2d, scratch, tail1d, "
+        "tail2d, wpt)\n"
         "from wavelets_tpu_torch.wt import convert\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'wavelets_tpu' or m.startswith('wavelets_tpu.')]\n"
@@ -53,7 +55,8 @@ def test_import_builds_nothing():
 
 
 def test_build_key_follows_sources():
-    assert [p.name for p in build.SOURCES] == ["level2d.cu", "tail2d.cu"]
+    assert [p.name for p in build.SOURCES] == ["level1d.cu", "level2d.cu",
+                                               "tail1d.cu", "tail2d.cu"]
     key = build._key()
     assert len(key) == 16 and key == build._key()
     assert "arch=compute_90a,code=sm_90a" in build.FLAGS
@@ -65,22 +68,42 @@ def test_dtype_codes(dtype, code):
     assert build.dtype_code(dtype) == code
 
 
+def test_compile_needs_nvcc(tmp_path):
+    """No nvcc here: building refuses, and leaves nothing behind."""
+    with pytest.raises(RuntimeError, match="nvcc"):
+        build._compile(tmp_path / "key" / "lib.so")
+    assert not (tmp_path / "key").exists()
+
+
+_MODULES = (level2d, tail2d, level1d, tail1d)
+
+
 def _calls(name):
-    return ({**level2d.LAUNCHES, **tail2d.LAUNCHES}[name],
-            {**level2d.PLAIN_CALLS, **tail2d.PLAIN_CALLS}[name])
+    launches, plain = {}, {}
+    for mod in _MODULES:
+        launches.update(mod.LAUNCHES)
+        plain.update(mod.PLAIN_CALLS)
+    return launches[name], plain[name]
 
 
 @pytest.mark.parametrize("name", ["level_fw", "level_inv", "tail_fw",
-                                  "tail_inv"])
+                                  "tail_inv", "level1d_fw", "level1d_inv",
+                                  "tail1d_fw", "tail1d_inv"])
 def test_cpu_tensor_takes_plain_version(name):
     wt = wtt.wavelet(wtt.wt.cdf97, "lifting")
     x = torch.as_tensor(np.random.default_rng(5).standard_normal((2, 16, 8)))
     quads = level2d.level_fw_plain(x, wt)
+    rows = x[0]
+    s, d = level1d.level1d_fw_plain(rows, wt)
     run = {
         "level_fw": lambda: level2d.level_fw(x, wt),
         "level_inv": lambda: level2d.level_inv(*quads, wt),
         "tail_fw": lambda: tail2d.tail_fw(x, wt, 2),
         "tail_inv": lambda: tail2d.tail_inv(x, wt, 2),
+        "level1d_fw": lambda: level1d.level1d_fw(rows, wt),
+        "level1d_inv": lambda: level1d.level1d_inv(s, d, wt),
+        "tail1d_fw": lambda: tail1d.tail1d_fw(rows, wt, 3),
+        "tail1d_inv": lambda: tail1d.tail1d_inv(rows, wt, 3),
     }[name]
     launches, plain = _calls(name)
     run()
@@ -123,6 +146,56 @@ def test_wrappers_check_their_inputs():
         tail2d.tail_fw(torch.zeros((1, 128, 256)), wt, 1)     # too large
 
 
+def test_1d_wrappers_check_their_inputs():
+    wt = wtt.wavelet(wtt.wt.haar, "lifting")
+    x = torch.zeros((2, 8))
+    with pytest.raises(ValueError):
+        level1d.level1d_fw(torch.zeros((2, 7)), wt)              # odd length
+    with pytest.raises(ValueError):
+        level1d.level1d_fw(torch.zeros(8), wt)                   # no batch
+    with pytest.raises(TypeError):
+        level1d.level1d_fw(torch.zeros((2, 8), dtype=torch.int32), wt)
+    with pytest.raises(ValueError):
+        level1d.level1d_fw(torch.zeros((2, 16))[:, ::2], wt)     # stride
+    with pytest.raises(ValueError):
+        level1d.level1d_fw(x, wt, torch.zeros((2, 4)))           # s alone
+    with pytest.raises(ValueError):
+        level1d.level1d_fw(x, wt, torch.zeros((2, 4)), torch.zeros((2, 5)))
+    with pytest.raises(ValueError):                              # aliasing
+        level1d.level1d_fw(x, wt, x[:, :4], torch.zeros((2, 4)))
+    s, d = level1d.level1d_fw(x, wt)
+    with pytest.raises(ValueError):
+        level1d.level1d_inv(s, d, wt, out=torch.zeros((2, 9)))
+    with pytest.raises(ValueError):
+        level1d.level1d_inv(s, d.double(), wt)
+    y = torch.zeros((2, 8))
+    with pytest.raises(ValueError):                              # aliasing
+        level1d.level1d_inv(y[:, :4], y[:, 4:], wt, out=y)
+    level1d.level1d_inv(y[:, :4], y[:, 4:], wt)      # reading in place is fine
+    with pytest.raises(ValueError):
+        tail1d.tail1d_fw(x, wt, 4)                               # 8 lacks 2^4
+    with pytest.raises(ValueError):
+        tail1d.tail1d_fw(x, wt, 0)
+    with pytest.raises(ValueError):
+        tail1d.tail1d_fw(torch.zeros((1, 1 << 15)), wt, 1)       # too long
+    with pytest.raises(ValueError):
+        tail1d.tail1d_inv(x, wt, 2,
+                          out=torch.zeros((2, 8), dtype=torch.float64))
+
+
+@pytest.mark.parametrize("n, L, dtype, k", [
+    (4096, 8, torch.float32, 0), (1 << 20, 20, torch.float32, 6),
+    (1 << 24, 8, torch.float32, 8), (1 << 20, 10, torch.float32, 6),
+    (1 << 20, 20, torch.float64, 7), (1 << 15, 15, torch.bfloat16, 1),
+    (1 << 14, 14, torch.float32, 0), (2, 1, torch.float64, 0)])
+def test_route_levels1d(n, L, dtype, k):
+    """The 1-D paths: level launches down to the tail's length, then one
+    tail launch for the rest."""
+    for wt in (wtt.wavelet(wtt.wt.db2), wtt.wavelet(wtt.wt.cdf97, "lifting")):
+        for inverse in (False, True):
+            assert dwt1d.kernel_levels1d(n, L, wt, dtype, inverse) == k
+
+
 @pytest.mark.parametrize("m, n, dtype, fits", [
     (128, 128, torch.float32, True), (128, 256, torch.float32, False),
     (128, 128, torch.bfloat16, True), (64, 128, torch.float64, True),
@@ -151,12 +224,26 @@ def test_profiling_refuses_cpu_tensors():
         profiling.time_fn(lambda v: v + 1, torch.zeros(4))
     with pytest.raises(ValueError):
         profiling.copy_bandwidth(torch.zeros(4))
+    with pytest.raises(ValueError):
+        profiling.enqueue_time(lambda v: v + 1, torch.zeros(4))
 
 
 def test_sol_fraction_definition():
     x = torch.zeros((1024, 1024))
     floor_s = 2 * x.numel() * 4 * (4 / 3) / 1e12
     assert profiling.sol_fraction(floor_s * 2, x, 1e12) == pytest.approx(0.5)
+
+
+@pytest.mark.parametrize("L, geometric", [(1, 1.0), (2, 1.5),
+                                          (8, 2 - 2 ** -7)])
+def test_sol_fraction_of_a_1d_pyramid(L, geometric):
+    """One read and one write of the active row per level: the row, then
+    half of it, ..."""
+    assert profiling.geometric1d(L) == pytest.approx(geometric)
+    x = torch.zeros(1 << 20)
+    floor_s = 2 * x.numel() * 4 * geometric / 1e12
+    assert profiling.sol_fraction(floor_s, x, 1e12,
+                                  profiling.geometric1d(L)) == pytest.approx(1)
 
 
 def test_chip_smoke_refuses_without_cuda():

@@ -1,8 +1,9 @@
 """Public ``dwt`` / ``idwt`` of the port against ``wavelets_tpu``'s.
 
 The same numpy input, from a seed, goes through both packages in float64
-on the CPU; the port's 2-D periodic route runs its pyramid driver with the
-kernels' plain versions, every other route its torch engines.
+on the CPU; the port's periodic 2-D and 1-D routes run their multi-level
+loops (ops/pyramid2d.py, ops/dwt1d.py) with the kernels' plain versions,
+every other route its torch engines.
 """
 
 import numpy as np
@@ -12,7 +13,7 @@ from threadpoolctl import threadpool_limits
 
 import wavelets_tpu as J
 import wavelets_tpu_torch as T
-from wavelets_tpu_torch.ops import level2d, tail2d
+from wavelets_tpu_torch.ops import level1d, level2d, tail1d, tail2d
 from wavelets_tpu_torch.wt.convert import from_reference
 
 
@@ -51,9 +52,24 @@ CASES = [
     ("sym6", "filter", (2, 32, 64), 2, 2),
     ("cdf97", "lifting", (2, 2), 1, None),
     ("db4", "filter", (4, 8), 2, None),
-    # routes with no kernel yet: the torch engines
+    # the 1-D multi-level loop (ops/dwt1d.py)
     ("db4", "filter", (1024,), 5, None),
     ("cdf97", "lifting", (3, 256), 4, 1),
+    ("cdf97", "lifting", (4096,), None, None),
+    ("cdf97", "lifting", (4096,), 3, None),
+    ("db4", "filter", (4096,), None, None),
+    ("haar", "lifting", (4096,), 3, None),
+    ("sym6", "filter", (4096,), None, None),
+    ("cdf97", "lifting", (3, 1024), None, 1),
+    ("db4", "filter", (3, 1024), 6, 1),
+    ("haar", "filter", (3, 1024), None, 1),
+    ("sym6", "filter", (3, 1024), 4, 1),
+    ("cdf97", "lifting", (2, 3, 256), 5, 1),
+    ("db4", "filter", (2, 3, 256), None, 1),
+    ("cdf97", "lifting", (384,), None, None),     # 3 * 2^7
+    ("db4", "filter", (3, 384), 7, 1),
+    ("haar", "lifting", (2,), None, None),
+    # routes with no kernel yet: the torch engines
     ("cdf97", "lifting", (16, 16, 16), 2, None),
     ("db2", "filter", (8, 16, 16), 3, 3),
 ]
@@ -91,6 +107,59 @@ def test_periodic_2d_takes_the_pyramid():
     assert after == (before[0] + 1, before[1] + 1)   # 256^2 level, then tail
 
 
+def test_periodic_1d_takes_the_level_and_tail_kernels():
+    """A 2^15 row: one level launch (it does not fit the tail), then one
+    tail launch for the other 14 levels, each through its plain version
+    on a CPU tensor."""
+    wt = T.wavelet(T.wt.cdf97, "lifting")
+
+    def counts():
+        return ({**level1d.LAUNCHES, **tail1d.LAUNCHES},
+                {**level1d.PLAIN_CALLS, **tail1d.PLAIN_CALLS})
+
+    launches, before = counts()
+    T.idwt(T.dwt(torch.zeros(1 << 15), wt), wt)
+    assert counts() == (launches, {k: v + 1 for k, v in before.items()})
+
+
+def test_1d_float32_tracks_the_jax_package_float32():
+    ref, wt = _carriers("db4", "filter")
+    x = np.random.default_rng(24).standard_normal((3, 4096)).astype(
+        np.float32)
+    want = np.asarray(J.dwt(x, ref, 8, ndt=1))
+    assert want.dtype == np.float32
+    got = T.dwt(torch.from_numpy(x), wt, 8, ndt=1)
+    assert got.dtype == torch.float32
+    assert np.abs(got.numpy() - want).max() <= 1e-4 * np.abs(want).max()
+
+
+def test_non_tensor_input_goes_to_the_card():
+    """A numpy array with no device asks for the card, and there is none
+    here: refused, not run quietly on the CPU."""
+    assert not torch.cuda.is_available()
+    wt = T.wavelet(T.wt.haar, "lifting")
+    x = np.random.default_rng(25).standard_normal((4, 8))
+    for fn in (T.dwt, T.idwt):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fn(x, wt, 1)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fn([1.0, 2.0], wt, 1)
+    for fn in (T.wpt, T.iwpt):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fn(x[0], wt, 2)
+    got = T.dwt(x, wt, 1, device="cpu")
+    assert got.device.type == "cpu"
+    _close(got, T.dwt(torch.from_numpy(x), wt, 1))
+
+
+def test_tensor_input_stays_on_its_device_unless_told():
+    wt = T.wavelet(T.wt.haar, "lifting")
+    x = torch.ones((4, 8), dtype=torch.float64)
+    assert T.dwt(x, wt, 1).device == x.device
+    assert T.dwt(x, wt, 1, device="cpu").device.type == "cpu"
+    assert T.wpt(x, wt, 2, device=torch.device("cpu")).device.type == "cpu"
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_narrow_dtypes_track_float64(dtype):
     ref, wt = _carriers("cdf97", "lifting")
@@ -109,7 +178,7 @@ def test_narrow_dtypes_track_float64(dtype):
 def test_integer_input_promotes_to_float64():
     ref, wt = _carriers("haar", "lifting")
     x = np.arange(64).reshape(8, 8)
-    got = T.dwt(x, wt, 2)
+    got = T.dwt(x, wt, 2, device="cpu")
     assert got.dtype == torch.float64
     _close(got, J.dwt(x, ref, 2))
     assert T.dwt(torch.ones((4, 4), dtype=torch.bool), wt, 1).dtype == \

@@ -43,12 +43,16 @@ __device__ __forceinline__ void load_bands(A* cf, int* of, const A* coefs,
   }
 }
 
+// Shared memory one block may take on the H100 (227 KiB).
+constexpr size_t SMEM_MAX = 232448;
+
 // Launch `kernel` with `smem` bytes of dynamic shared memory and return
 // the launch status: a refused launch (too many threads, too much shared
 // memory) never runs, and only cudaGetLastError reports it.
 template <typename K, typename... Args>
 inline int launch(K kernel, dim3 grid, dim3 block, size_t smem,
                   cudaStream_t stream, Args... args) {
+  if (smem > SMEM_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));

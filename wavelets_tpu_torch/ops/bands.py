@@ -32,7 +32,7 @@ from ..wt.schemes import PREDICT
 from .filter_fb import filter_pair
 
 __all__ = ["level_bands", "synthesis_bands", "band_reach", "syn_reach",
-           "acc_dtype", "BandTable", "band_table"]
+           "tap_count", "acc_dtype", "BandTable", "band_table"]
 
 
 def _frozen(*arrays):
@@ -124,6 +124,15 @@ def syn_reach(wt):
     """(left, right) reach of the synthesis bands around k."""
     deltas = np.concatenate([d for d, _ in synthesis_bands(wt)])
     return int(-deltas.min()), int(deltas.max())
+
+
+def tap_count(wt, inverse: bool) -> int:
+    """Taps of one level: the analysis bands (s and d), or all four
+    synthesis bands."""
+    if inverse:
+        return sum(len(d) for d, _ in synthesis_bands(wt))
+    ds, _, dd, _ = level_bands(wt)
+    return len(ds) + len(dd)
 
 
 def acc_dtype(dtype: torch.dtype) -> torch.dtype:

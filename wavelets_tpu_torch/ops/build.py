@@ -1,7 +1,9 @@
 """Build and load the CUDA kernels of ``wavelets_tpu_torch/csrc``.
 
-At first use the sources are compiled with ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, which is loaded with ``ctypes``.
+At first use each source is compiled with ``nvcc`` for ``sm_90a`` (one
+``nvcc`` per source, all started together), and the objects are linked
+into one shared library with a plain C interface, which is loaded with
+``ctypes``.
 The library goes into ``wavelets_tpu_torch/_build/<key>/``, where ``<key>``
 hashes the sources and the flags, so an edited source rebuilds.  Importing
 this module builds nothing and needs no ``nvcc``.
@@ -31,7 +33,7 @@ BUILD = PKG / "_build"
 SOURCES = tuple(sorted(CSRC.glob("*.cu")))
 HEADERS = tuple(sorted(CSRC.glob("*.cuh")))
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+         "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # dtype codes of the C interface (csrc/common.cuh, enum DType)
 DTYPE_CODES = {"float32": 0, "float64": 1, "bfloat16": 2}
@@ -59,6 +61,21 @@ _SIGNATURES = {
     # stream
     "wtt_tail_inv": [_I, _I, _I, _I, _I, _P, _L, _L, _P, _L, _L, _P, _P, _P,
                      _P],
+    # dtype, B, n, x, xs, s, ss, d, ds, offs, coefs, ns, nd, dmin, span,
+    # stream
+    "wtt_level1d_fw": [_I, _I, _I, _P, _L, _P, _L, _P, _L, _P, _P, _I, _I, _I,
+                       _I, _P],
+    # dtype, B, nh, s, ss, d, ds, x, xs, offs, coefs, counts[], smin, span,
+    # stream
+    "wtt_level1d_inv": [_I, _I, _I, _P, _L, _P, _L, _P, _L, _P, _P, _P, _I,
+                        _I, _P],
+    # dtype, B, n, L, x, xs, y, ys, offs, coefs, ns, nd, dmin, span, stream
+    "wtt_tail1d_fw": [_I, _I, _I, _I, _P, _L, _P, _L, _P, _P, _I, _I, _I, _I,
+                      _P],
+    # dtype, B, n, L, y, ys, out, os, offs, coefs, counts[], smin, span,
+    # stream
+    "wtt_tail1d_inv": [_I, _I, _I, _I, _P, _L, _P, _L, _P, _P, _P, _I, _I,
+                       _P],
 }
 
 
@@ -82,16 +99,30 @@ def _nvcc() -> str:
 
 
 def _compile(target: Path) -> None:
+    """One ``nvcc -c`` per source, all running at once, then one link."""
+    nvcc = _nvcc()
     target.parent.mkdir(parents=True, exist_ok=True)
+    tmpdir = Path(tempfile.mkdtemp(dir=target.parent))
+    objs = [tmpdir / (src.stem + ".o") for src in SOURCES]
+    cmds = [[nvcc, *FLAGS, "-c", "-o", str(o), str(src)]
+            for src, o in zip(SOURCES, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=target.parent)
     os.close(fd)
-    cmd = [_nvcc(), *FLAGS, "-o", tmp, *map(str, SOURCES)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    (target.parent / "build.log").write_text(
-        " ".join(cmd) + "\n" + res.stdout + res.stderr)
-    if res.returncode != 0:
+    link = [nvcc, "-shared", "-o", tmp, *map(str, objs)]
+    res = (subprocess.run(link, capture_output=True, text=True)
+           if all(p.returncode == 0 for p in procs) else None)
+    log = [" ".join(c) + "\n" + o for c, o in zip(cmds, outs)]
+    if res is not None:
+        log.append(" ".join(link) + "\n" + res.stdout + res.stderr)
+    (target.parent / "build.log").write_text("".join(log))
+    shutil.rmtree(tmpdir)
+    if res is None or res.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+        raise RuntimeError("nvcc failed:\n" + "".join(log))
     os.replace(tmp, target)
 
 

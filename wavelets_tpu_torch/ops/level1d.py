@@ -1,0 +1,162 @@
+"""One level of the periodic 1-D DWT over ``(B, n)`` rows: CUDA kernels E
+(forward) and F (inverse) and their plain versions.
+
+``level1d_fw`` takes ``x (B, n)`` to the scaling and detail bands ``s`` and
+``d`` (each ``(B, n/2)``).  The outputs are any two planes with unit
+column stride and their own row strides, so the multi-level loop
+(ops/dwt1d.py) writes ``d`` straight into the packed array's detail
+segment, and the packet transform (ops/wpt.py) writes ``[s | d]`` into the
+two halves of each output row.  ``level1d_inv`` is its inverse: it reads
+the two planes (in place from a packed array, if the caller wishes) and
+writes the merged ``(B, 2nh)`` rows.
+
+Both are driven by the wavelet's bands (ops/bands.py), as the 2-D kernels
+are; the plain versions are the 1-D passes of ops/level2d.py.  They
+replace the TPU kernels of ``wavelets_tpu/ops/pallas/dwt1d.py`` and
+``wide1d.py`` (see csrc/level1d.cu).  A tensor on the CPU takes the plain
+PyTorch version (``level1d_fw_plain``, ``level1d_inv_plain``); a CUDA
+tensor launches the kernel or raises.  Arithmetic runs in float32 for
+float32 and bfloat16 storage (bfloat16 outputs are rounded once per level)
+and in float64 for float64.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build
+from .bands import acc_dtype, band_table
+from .level2d import DTYPES, _analysis, _check_disjoint, _synthesis
+
+__all__ = ["DTYPES", "LAUNCHES", "PLAIN_CALLS", "level1d_fw",
+           "level1d_fw_plain", "level1d_inv", "level1d_inv_plain"]
+
+LAUNCHES = {"level1d_fw": 0, "level1d_inv": 0}
+PLAIN_CALLS = {"level1d_fw": 0, "level1d_inv": 0}
+
+
+def check_rows(t, name, shape=None, dtype=None, device=None):
+    """``t`` must be a ``(B, n)`` tensor with unit column stride (and the
+    given shape, dtype and device, where given)."""
+    if not isinstance(t, torch.Tensor) or t.dim() != 2:
+        raise ValueError(f"{name} must be a (B, n) tensor")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if dtype is None:
+        if t.dtype not in DTYPES:
+            raise TypeError(f"{name}: dtype {t.dtype} not in {DTYPES}")
+        if t.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"{name}: unsupported device {t.device}")
+    elif t.dtype != dtype or t.device != device:
+        raise ValueError(f"{name} is {t.dtype} on {t.device}, expected "
+                         f"{dtype} on {device}")
+    if t.shape[1] > 1 and t.stride(1) != 1:
+        raise ValueError(f"{name} needs unit column stride")
+
+
+def _fw_outs(x, s, d):
+    B, n = x.shape
+    if n < 2 or n % 2:
+        raise ValueError(f"level1d_fw needs an even length, got {n}")
+    shape = (B, n // 2)
+    if s is None and d is None:
+        return (torch.empty(shape, dtype=x.dtype, device=x.device),
+                torch.empty(shape, dtype=x.dtype, device=x.device))
+    if s is None or d is None:
+        raise ValueError("give both output planes s and d, or neither")
+    check_rows(s, "s", shape, x.dtype, x.device)
+    check_rows(d, "d", shape, x.dtype, x.device)
+    return s, d
+
+
+def _inv_out(s, d, out):
+    check_rows(s, "s")
+    B, nh = s.shape
+    if nh < 1:
+        raise ValueError("level1d_inv needs non-empty bands")
+    check_rows(d, "d", (B, nh), s.dtype, s.device)
+    shape = (B, 2 * nh)
+    if out is None:
+        return torch.empty(shape, dtype=s.dtype, device=s.device)
+    check_rows(out, "out", shape, s.dtype, s.device)
+    return out
+
+
+# --- plain versions ----------------------------------------------------------
+
+def level1d_fw_plain(x, wt, s=None, d=None):
+    """Plain PyTorch version of :func:`level1d_fw` (same outputs, same
+    layout), computed with index_select gathers in the arithmetic type."""
+    check_rows(x, "x")
+    s, d = _fw_outs(x, s, d)
+    PLAIN_CALLS["level1d_fw"] += 1
+    a, dt = _analysis(x.to(acc_dtype(x.dtype)), wt, -1)
+    s.copy_(a)
+    d.copy_(dt)
+    return s, d
+
+
+def level1d_inv_plain(s, d, wt, out=None):
+    """Plain PyTorch version of :func:`level1d_inv`."""
+    out = _inv_out(s, d, out)
+    PLAIN_CALLS["level1d_inv"] += 1
+    a = acc_dtype(s.dtype)
+    out.copy_(_synthesis(s.to(a), d.to(a), wt, -1))
+    return out
+
+
+# --- kernels -----------------------------------------------------------------
+
+def _launch_fw(x, wt, s, d, stream):
+    table = band_table(wt, False, x.dtype, x.device)
+    B, n = x.shape
+    build.check(build.library().wtt_level1d_fw(
+        build.dtype_code(x.dtype), B, n, x.data_ptr(), x.stride(0),
+        s.data_ptr(), s.stride(0), d.data_ptr(), d.stride(0),
+        table.offs.data_ptr(), table.coefs.data_ptr(), *table.counts,
+        table.dmin, table.span, stream), "level1d_fw")
+
+
+def _launch_inv(s, d, wt, out, stream):
+    table = band_table(wt, True, s.dtype, s.device)
+    B, nh = s.shape
+    build.check(build.library().wtt_level1d_inv(
+        build.dtype_code(s.dtype), B, nh, s.data_ptr(), s.stride(0),
+        d.data_ptr(), d.stride(0), out.data_ptr(), out.stride(0),
+        table.offs.data_ptr(), table.coefs.data_ptr(),
+        (ctypes.c_int * 4)(*table.counts), table.dmin, table.span, stream),
+        "level1d_inv")
+
+
+def level1d_fw(x, wt, s=None, d=None):
+    """Forward 1-D level of ``x (B, n)`` into the planes ``s`` and ``d``
+    (``(B, n/2)``, unit column stride, any row stride; allocated when both
+    are None).  The outputs may not overlap ``x``.  Returns ``(s, d)``."""
+    check_rows(x, "x")
+    s, d = _fw_outs(x, s, d)
+    _check_disjoint((x,), (s, d), "level1d_fw")
+    if x.device.type == "cpu":
+        return level1d_fw_plain(x, wt, s, d)
+    if x.shape[0]:
+        with torch.cuda.device(x.device):
+            _launch_fw(x, wt, s, d, torch.cuda.current_stream().cuda_stream)
+        LAUNCHES["level1d_fw"] += 1
+    return s, d
+
+
+def level1d_inv(s, d, wt, out=None):
+    """Inverse 1-D level: the planes ``s`` and ``d`` ``(B, nh)`` (unit
+    column stride, any row stride) -> ``out (B, 2nh)`` (allocated when
+    None), which may not overlap them.  Returns ``out``."""
+    out = _inv_out(s, d, out)
+    _check_disjoint((s, d), (out,), "level1d_inv")
+    if s.device.type == "cpu":
+        return level1d_inv_plain(s, d, wt, out)
+    if s.shape[0]:
+        with torch.cuda.device(s.device):
+            _launch_inv(s, d, wt, out, torch.cuda.current_stream().cuda_stream)
+        LAUNCHES["level1d_inv"] += 1
+    return out

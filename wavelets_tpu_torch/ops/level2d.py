@@ -65,11 +65,10 @@ def _check_input(x, name="x"):
 
 
 def _extent(t):
-    """[first, last] byte address that a (B, rows, cols) view spans."""
-    (B, R, C), (sb, sr, _) = t.shape, t.stride()
+    """[first, last] byte address that a non-empty strided view spans."""
     first = t.data_ptr()
-    return first, first + ((B - 1) * sb + (R - 1) * sr + C) * \
-        t.element_size() - 1
+    last = sum((n - 1) * s for n, s in zip(t.shape, t.stride()))
+    return first, first + (last + 1) * t.element_size() - 1
 
 
 def _check_disjoint(reads, writes, name):

@@ -26,6 +26,7 @@ import torch
 
 from . import level2d, tail2d
 from .level2d import detail_planes
+from .scratch import Scratch
 
 __all__ = ["dwt2", "idwt2", "kernel_levels", "detail_planes"]
 
@@ -44,22 +45,6 @@ def kernel_levels(m: int, n: int, L: int, wt, dtype, inverse: bool) -> int:
     return k
 
 
-class _Scratch:
-    """Two ping-pong buffers for the LL between levels: buffer 0 holds
-    up to B x m/2 x n/2 samples, buffer 1 up to B x m/4 x n/4."""
-
-    def __init__(self, like, B, m, n):
-        self.like = like
-        self.caps = (B * (m >> 1) * (n >> 1), B * (m >> 2) * (n >> 2))
-        self.bufs = [None, None]
-
-    def view(self, i, B, rows, cols):
-        if self.bufs[i] is None:
-            self.bufs[i] = torch.empty(self.caps[i], dtype=self.like.dtype,
-                                       device=self.like.device)
-        return self.bufs[i][: B * rows * cols].view(B, rows, cols)
-
-
 def dwt2(x, wt, L: int, *, plain: bool = False):
     """L-level forward 2-D DWT of a contiguous ``x (B, m, n)`` -> packed
     ``(B, m, n)``.  ``plain=True`` runs the kernels' plain versions on any
@@ -70,7 +55,7 @@ def dwt2(x, wt, L: int, *, plain: bool = False):
     if L == 0:
         return y.copy_(x)
     k = kernel_levels(m, n, L, wt, x.dtype, inverse=False)
-    scratch = _Scratch(x, B, m, n)
+    scratch = Scratch(x, (B * (m >> 1) * (n >> 1), B * (m >> 2) * (n >> 2)))
     act = x
     for l in range(1, k + 1):
         mh, nh = m >> l, n >> l
@@ -90,7 +75,7 @@ def idwt2(y, wt, L: int, *, plain: bool = False):
     if L == 0:
         return out.copy_(y)
     k = kernel_levels(m, n, L, wt, y.dtype, inverse=True)
-    scratch = _Scratch(y, B, m, n)
+    scratch = Scratch(y, (B * (m >> 1) * (n >> 1), B * (m >> 2) * (n >> 2)))
 
     def dest(l):   # where level l's merged (m >> (l-1), n >> (l-1)) goes
         if l == 1:

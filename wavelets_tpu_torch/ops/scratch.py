@@ -1,0 +1,32 @@
+"""Ping-pong scratch buffers for the multi-level drivers.
+
+A level reads its active array while it writes the next one, so the
+drivers (ops/pyramid2d.py, ops/dwt1d.py, ops/wpt.py) alternate between
+two buffers and no launch writes the memory it reads.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+__all__ = ["Scratch"]
+
+
+class Scratch:
+    """Two ping-pong buffers, like ``like``: ``caps`` samples each (for a
+    pyramid, the first level's band, then the second's), allocated at
+    first use."""
+
+    def __init__(self, like, caps):
+        self.like = like
+        self.caps = caps
+        self.bufs = [None, None]
+
+    def view(self, i, *shape):
+        """The first ``prod(shape)`` samples of buffer ``i``, as ``shape``."""
+        if self.bufs[i] is None:
+            self.bufs[i] = torch.empty(self.caps[i], dtype=self.like.dtype,
+                                       device=self.like.device)
+        return self.bufs[i][: math.prod(shape)].view(shape)

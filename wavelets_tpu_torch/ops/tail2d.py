@@ -22,7 +22,7 @@ import ctypes
 import torch
 
 from . import build
-from .bands import acc_dtype, band_table, level_bands, synthesis_bands
+from .bands import acc_dtype, band_table, tap_count
 from .level2d import (SMEM_LIMIT, _check_input, _check_plane, detail_planes,
                       merge_inv, quads_fw)
 
@@ -33,19 +33,12 @@ LAUNCHES = {"tail_fw": 0, "tail_inv": 0}
 PLAIN_CALLS = {"tail_fw": 0, "tail_inv": 0}
 
 
-def _taps(wt, inverse: bool) -> int:
-    if inverse:
-        return sum(len(d) for d, _ in synthesis_bands(wt))
-    ds, _, dd, _ = level_bands(wt)
-    return len(ds) + len(dd)
-
-
 def tail_fits(m: int, n: int, wt, dtype, inverse: bool = False) -> bool:
     """Can one block hold an (m, n) array, its scratch and the band table in
     shared memory?  (128 x 128 in float32 and bfloat16, 64 x 128 in
     float64.)  The same limit holds on the CPU, so both route alike."""
     size = acc_dtype(dtype).itemsize
-    return 2 * m * n * size + _taps(wt, inverse) * (size + 4) <= SMEM_LIMIT
+    return 2 * m * n * size + tap_count(wt, inverse) * (size + 4) <= SMEM_LIMIT
 
 
 def _check(x, L, out, name):

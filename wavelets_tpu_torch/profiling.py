@@ -7,22 +7,32 @@ warm-up call.  The card needs no barrier calibration: CUDA events recorded
 on the stream bracket the loop, and ``torch.cuda.synchronize()`` waits for
 the end.  ``copy_bandwidth`` is the same-run streaming floor (a
 chained ``x + 1``) and ``med3`` the median of three such measurements, the
-estimator of ``bench.py``.  Every function here needs a CUDA tensor: a
-timing taken on the CPU is not a device time.
+estimator of ``bench.py``.  ``enqueue_time`` is the host's side: the
+seconds the host takes to enqueue one call, which bounds the call's time
+from below when the host, not the card, is the bottleneck.  Every
+function here needs a CUDA tensor: a timing taken on the CPU is not a
+device time.
 """
 
 from __future__ import annotations
 
+import time
+
 import torch
 
-__all__ = ["time_fn", "med3", "copy_bandwidth", "sol_fraction"]
+__all__ = ["time_fn", "med3", "enqueue_time", "copy_bandwidth",
+           "sol_fraction", "geometric1d"]
+
+
+def _check_cuda(x):
+    if not isinstance(x, torch.Tensor) or x.device.type != "cuda":
+        raise ValueError("timing needs a CUDA tensor")
 
 
 def time_fn(fn, x, iters: int = 10, chain: bool = True) -> float:
     """Mean seconds per call of ``fn`` over ``iters`` chained calls on the
     card, measured with CUDA events after one warm-up call."""
-    if not isinstance(x, torch.Tensor) or x.device.type != "cuda":
-        raise ValueError("time_fn times work on a CUDA tensor")
+    _check_cuda(x)
     y = fn(x)
     same = isinstance(y, torch.Tensor) and y.shape == x.shape \
         and y.dtype == x.dtype
@@ -43,6 +53,20 @@ def med3(fn, x, iters: int = 10) -> float:
     return sorted(time_fn(fn, x, iters) for _ in range(3))[1]
 
 
+def enqueue_time(fn, x, iters: int = 10) -> float:
+    """Mean host seconds to enqueue one call of ``fn(x)`` (the card keeps
+    running behind), over ``iters`` calls after one warm-up call."""
+    _check_cuda(x)
+    fn(x)
+    torch.cuda.synchronize(x.device)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn(x)
+    seconds = (time.perf_counter() - t0) / iters
+    torch.cuda.synchronize(x.device)
+    return seconds
+
+
 def copy_bandwidth(x, iters: int = 10) -> tuple[float, float]:
     """Same-run streaming floor: the :func:`med3` seconds of a chained
     ``x + 1`` (one read and one write of ``x``) and the bytes per second it
@@ -51,10 +75,19 @@ def copy_bandwidth(x, iters: int = 10) -> tuple[float, float]:
     return dt, 2 * x.numel() * x.element_size() / dt
 
 
-def sol_fraction(seconds: float, x, copy_bytes_per_s: float) -> float:
-    """Speed-of-light share of a multi-level 2-D pyramid on ``x``, as
+def sol_fraction(seconds: float, x, copy_bytes_per_s: float,
+                 geometric: float = 4 / 3) -> float:
+    """Speed-of-light share of a multi-level pyramid on ``x``, as
     ``bench.py`` defines it: one read and one write of the active array per
-    level, geometric over levels (4/3 of the image), at the copy floor's
-    rate, divided by the measured time."""
-    floor = 2 * x.numel() * x.element_size() * (4 / 3) / copy_bytes_per_s
+    level, at the copy floor's rate, divided by the measured time.
+    ``geometric`` is the active array's size summed over the levels, as a
+    multiple of ``x``: 4/3 for a 2-D pyramid (the default), and
+    :func:`geometric1d` for a 1-D one."""
+    floor = 2 * x.numel() * x.element_size() * geometric / copy_bytes_per_s
     return floor / seconds
+
+
+def geometric1d(L: int) -> float:
+    """Active row summed over the L levels of a 1-D pyramid, as a multiple
+    of the row: 1 + 1/2 + ... = 2 (1 - 2^-L)."""
+    return 2 * (1 - 2.0 ** -L)

@@ -1,13 +1,20 @@
-"""Public transform API of the port: ``dwt`` and ``idwt``.
+"""Public transform API of the port: ``dwt``/``idwt`` and ``wpt``/``iwpt``.
 
 The counterpart of ``wavelets_tpu/transforms.py``.  The wavelet carrier
 picks the engine (OrthoFilter -> filter bank, GLS -> lifting) and the
 trailing ``ndt`` axes are transformed (default: the array rank, at most 3;
 leading axes are batch).  Integer and boolean input promotes to float64.
 
-Routing: a periodic boundary with ``ndt == 2`` and float32, bfloat16 or
-float64 data goes to ops/pyramid2d.py, whose level and tail launches run
+Device: a ``torch.Tensor`` stays on its own device unless ``device`` is
+given; any other input (a NumPy array, a list, a scalar) is placed on
+``device``, or on the CUDA card when ``device`` is None.  Without a card
+that raises: pass ``device="cpu"`` to run on the CPU.
+
+Routing: a periodic boundary with float32, bfloat16 or float64 data goes to
+ops/pyramid2d.py for ``ndt == 2`` and to ops/dwt1d.py for ``ndt == 1``
+(leading axes flatten onto the batch); their level and tail launches run
 the CUDA kernels on a CUDA tensor and their plain versions on a CPU tensor.
+``wpt``/``iwpt`` run one 1-D level launch per tree depth (ops/wpt.py).
 Everything else runs on the torch engines (ops/lifting.py,
 ops/filter_fb.py) on the tensor's own device.  Complex input and the other
 transforms of the JAX package are not ported yet.
@@ -15,23 +22,36 @@ transforms of the JAX package are not ported yet.
 
 from __future__ import annotations
 
+from functools import lru_cache
+
+import numpy as np
 import torch
 
 from .utils.indexing import maxtransformlevels, sufficientpoweroftwo
+from .utils.trees import isvalidtree, maketree
 from .wt.carriers import GLS, OrthoFilter, DiscreteWavelet
 from .wt.factor import check_boundary_stability
-from .ops import filter_fb, lifting, pyramid2d
+from .ops import dwt1d, filter_fb, lifting, pyramid2d, wpt as wpt_ops
 from .ops.level2d import DTYPES
 
-__all__ = ["dwt", "idwt"]
+__all__ = ["dwt", "idwt", "wpt", "iwpt"]
 
 # transform dims = array rank, capped at 3 (higher ranks batch the leading
 # axes)
 _MAX_NDT = 3
 
 
-def _as_float(x):
-    x = torch.as_tensor(x)
+def _as_float(x, device=None):
+    if isinstance(x, torch.Tensor):
+        if device is not None:
+            x = x.to(device)
+    else:
+        device = torch.device("cuda" if device is None else device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA card: a non-tensor input goes to the card unless "
+                "device is given (device='cpu' runs on the CPU)")
+        x = torch.as_tensor(x, device=device)
     if x.is_complex():
         raise NotImplementedError("complex input is not ported yet")
     if not x.is_floating_point():
@@ -71,6 +91,10 @@ def _transform(x, wt, L, ndt, fw):
         flat = x.reshape((-1,) + tuple(x.shape[-2:])).contiguous()
         fn = pyramid2d.dwt2 if fw else pyramid2d.idwt2
         return fn(flat, wt, L).reshape(x.shape)
+    if ndt == 1 and _periodic(wt) and x.dtype in DTYPES:
+        flat = x.reshape(-1, x.shape[-1]).contiguous()
+        fn = dwt1d.dwt1 if fw else dwt1d.idwt1
+        return fn(flat, wt, L).reshape(x.shape)
     if isinstance(wt, OrthoFilter):
         h, g = filter_fb.filter_pair(wt)
         if ndt == 1:
@@ -86,16 +110,17 @@ def _transform(x, wt, L, ndt, fw):
 
 
 def dwt(x, wt: DiscreteWavelet, L: int | None = None, *,
-        ndt: int | None = None):
+        ndt: int | None = None, device=None):
     """Forward discrete wavelet transform.
 
     ``x`` — a tensor (or array-like) of rank 1, 2 or 3, or higher with the
     trailing ``ndt`` axes transformed and the leading axes batched.
     ``wt`` — a carrier from ``wt.wavelet``.  ``L`` — the number of levels
-    (default: the most the shape allows).  Returns the coefficients in the
-    packed layout, on ``x``'s device (``x`` itself when ``L`` is 0).
+    (default: the most the shape allows).  ``device`` — where to run (see
+    the module docstring).  Returns the coefficients in the packed layout,
+    on that device (the input itself when ``L`` is 0).
     """
-    x = _as_float(x)
+    x = _as_float(x, device)
     ndt = _ndt(x, ndt)
     if L is None:
         L = maxtransformlevels(tuple(x.shape[-ndt:]))
@@ -104,11 +129,65 @@ def dwt(x, wt: DiscreteWavelet, L: int | None = None, *,
 
 
 def idwt(y, wt: DiscreteWavelet, L: int | None = None, *,
-         ndt: int | None = None):
+         ndt: int | None = None, device=None):
     """Inverse of :func:`dwt`."""
-    y = _as_float(y)
+    y = _as_float(y, device)
     ndt = _ndt(y, ndt)
     if L is None:
         L = maxtransformlevels(tuple(y.shape[-ndt:]))
     _check_levels(y, L, ndt)
     return _transform(y, wt, int(L), ndt, False)
+
+
+# --- wavelet packets --------------------------------------------------------
+
+def _tree_or_levels(tree, L):
+    """The reference's L-or-tree third-positional overload."""
+    if isinstance(tree, (int, np.integer)):
+        if L is not None and L != tree:
+            raise ValueError("give either tree or L, not both")
+        return None, int(tree)
+    if tree is not None and L is not None:
+        raise ValueError("give either tree or L, not both")
+    return tree, L
+
+
+@lru_cache(maxsize=64)
+def _full_tree(n: int, L: int) -> np.ndarray:
+    """The full L-level tree of a length-n signal, read-only, built once:
+    it is valid by construction (checking a tree costs milliseconds at
+    n = 2^20)."""
+    tree = maketree(n, L, "full")
+    tree.setflags(write=False)
+    return tree
+
+
+def _wpt_common(x, wt, tree, L, fw, device):
+    x = _as_float(x, device)
+    n = x.shape[-1]
+    if tree is None:
+        tree = _full_tree(n, maxtransformlevels(n) if L is None else int(L))
+    elif not isvalidtree(n, tree):
+        raise ValueError("invalid tree")
+    fn = wpt_ops.wpt if fw else wpt_ops.iwpt
+    return fn(x, wt, tree)
+
+
+def wpt(x, wt: DiscreteWavelet, tree=None, L: int | None = None, *,
+        device=None):
+    """Wavelet packet transform along the last axis.
+
+    ``tree`` is a bool heap vector (see utils.maketree); if omitted, a full
+    L-level tree is used (default L: the most the length allows).  An
+    integer third positional is taken as ``L``.  ``device`` as for
+    :func:`dwt`.
+    """
+    tree, L = _tree_or_levels(tree, L)
+    return _wpt_common(x, wt, tree, L, True, device)
+
+
+def iwpt(y, wt: DiscreteWavelet, tree=None, L: int | None = None, *,
+         device=None):
+    """Inverse of :func:`wpt` (also accepts an integer as ``L``)."""
+    tree, L = _tree_or_levels(tree, L)
+    return _wpt_common(y, wt, tree, L, False, device)
