@@ -19,6 +19,14 @@ exits non-zero:
                   forward G and inverse H) the same way: lengths 2 to 2^15
                   with a batch of 3, plus one 2^20 row for E and F, and E/F
                   through the row strides of the packet transform.
+  2c. kernels3d -- the axis-0 kernels (forward I, inverse J, and J reading
+                  a separate corner) the same way, on (B, R, C) views with
+                  gaps between rows and batch items, R = 2, narrow C and
+                  the 3-D driver's permuted layouts.
+  2d. kernelsmodwt -- the MODWT kernels (forward K, inverse M) the same
+                  way for three filter wavelets, on (B, N) rows with
+                  N = 5 to 8192, N = 1000, strided columns and a tap reach
+                  above N.
   3. main      -- dwt/idwt of the 16384^2 float32 image, cdf97 lifting, 8
                   levels, through the public entry points; the launch counts
                   show the route, the round trip is checked, and smaller
@@ -27,6 +35,13 @@ exits non-zero:
                   batched (4096, 4096) db4 L8, single 2^20 db2 L20, single
                   2^24 cdf97 L8 and wpt 2^20 db4 L10; each with its launch
                   table, its f32 round trip and a plain float64 reference.
+  3c. main3d   -- dwt/idwt of the 256^3 float32 volume, cdf97 lifting, 3
+                  levels (kernels A then I per forward level, J then B per
+                  inverse level), with its launch table, its f32 round
+                  trip, the plain float64 version, and a float64 round trip
+                  at 128^3.
+  3d. mainmodwt -- modwt/imodwt of (512, 8192) float32 rows, db4, 6 levels
+                  (K and M, one launch per level), checked the same way.
   4. times     -- CUDA-event times (median of three chained measurements) of
                   the 2-D main path in f32 and bf16, the same-run copy floor
                   and sol_fraction, the 2048^2 forward, and each 2-D kernel
@@ -34,6 +49,10 @@ exits non-zero:
   4b. times1d  -- the same for the 1-D paths (f32, and bf16 for the batched
                   one), with the host's time to enqueue each call, and the
                   1-D kernels.
+  4c. times3d, timesmodwt -- the same for the 3-D and MODWT paths (f32 and
+                  bf16), and kernels I, J, K and M; for K also the
+                  contiguous store and the permuted copy that the column
+                  store replaces.
   5. trace     -- torch.profiler over five calls of each path: the device
                   time of each launch of one call, the device's busy time,
                   and its idle share against the calls' time with the
@@ -53,8 +72,10 @@ import torch.nn.functional as F
 
 import wavelets_tpu_torch as w
 from wavelets_tpu_torch import profiling as P
-from wavelets_tpu_torch.ops import (bands, build, dwt1d, level1d, level2d,
-                                    lifting, pyramid2d, tail1d, tail2d)
+from wavelets_tpu_torch.ops import (axis0, bands, build, dwt1d, dwt3d,
+                                    level1d, level2d, lifting, modwt1d,
+                                    pyramid2d, tail1d, tail2d)
+from wavelets_tpu_torch.ops import modwt as modwt_ops
 from wavelets_tpu_torch.ops import wpt as wpt_ops
 from wavelets_tpu_torch.ops.bands import tap_count as taps
 
@@ -83,6 +104,15 @@ ROUTES1D = {
     "wpt_2e20_db4_L10": {"level1d_fw": 10, "tail1d_fw": 0,
                          "level1d_inv": 10, "tail1d_inv": 0},
 }
+# axis-0 shapes (B, R, C): R = 2, narrow and ragged C, tall and wide
+SHAPES_A0 = ((1, 2, 1), (3, 2, 5), (2, 8, 3), (5, 4, 40), (3, 96, 160),
+             (64, 64, 64), (2, 2048, 512))
+# MODWT rows (B, N, level j): a reach (taps - 1) 2^(j-1) above N, N = 1000
+WAVELETS_MODWT = (("db4", "filter"), ("haar", "filter"), ("sym6", "filter"))
+ROWS_MODWT = ((3, 5, 2), (3, 8, 3), (3, 1000, 1), (3, 1000, 9),
+              (2, 8192, 6), (64, 4096, 1))
+SIZE3D, LEVELS3D = 256, 3
+MODWT_SHAPE, MODWT_LEVELS = (512, 8192), 6
 # published H100 SXM rates (NVIDIA's data sheet): device memory, and FP32
 # outside the tensor cores (every timed kernel computes in float32)
 PEAK_BYTES_S = 3.35e12
@@ -90,7 +120,7 @@ PEAK_FLOPS_F32 = 67e12
 # a library call computes the kernel's function within this of the plain
 # version (cuDNN sums in another order)
 LIBRARY_TOL = 1e-4
-MODULES = (level2d, tail2d, level1d, tail1d)
+MODULES = (level2d, tail2d, level1d, tail1d, axis0, modwt1d)
 
 
 def emit(obj):
@@ -261,6 +291,78 @@ def packed_of(o):
     return y
 
 
+def library_axis0_fw(s, wt):
+    """conv2d with a (taps, 1) kernel at stride (2, 1) on the rows of a
+    contiguous ``s (R, m, n)`` wrapped beforehand: output ``(1, 2, R/2,
+    m n)`` = (a, d) along axis 0."""
+    h, dmin = analysis_filters(wt)
+    R = s.shape[0]
+    K = h.shape[1]
+    sp = s.reshape(R, -1)[_wrap_index(R + K - 1, dmin, R, s.device)]
+    sp = sp[None, None].contiguous()
+    wgt = torch.from_numpy(h)[:, None, :, None].to(s)
+    return lambda: F.conv2d(sp, wgt, stride=(2, 1))
+
+
+def library_axis0_inv(a, d, wt):
+    """The polyphase form of the inverse, one conv2d: the two planes
+    ``(Rh, m, n)`` as two input channels, wrapped beforehand; output
+    channel p holds the rows 2k + p, ``(1, 2, Rh, m n)``.  (cuDNN's
+    conv_transpose2d took 1222 ms for kernel B's level, so the transposed
+    form is no yardstick.)"""
+    bands_ = bands.synthesis_bands(wt)
+    smin = min(int(dl.min()) for dl, _ in bands_)
+    K = max(int(dl.max()) for dl, _ in bands_) - smin + 1
+    wgt = np.zeros((2, 2, K, 1))
+    for p in (0, 1):
+        for ch in (0, 1):
+            dl, c = bands_[2 * p + ch]
+            np.add.at(wgt[p, ch, :, 0], dl - smin, c)
+    Rh = a.shape[0]
+    idx = _wrap_index(Rh + K - 1, smin, Rh, a.device)
+    inp = torch.stack([a.reshape(Rh, -1)[idx], d.reshape(Rh, -1)[idx]])
+    inp = inp[None].contiguous()
+    wgt = torch.from_numpy(wgt).to(a)
+    return lambda: F.conv2d(inp, wgt)
+
+
+def interleave_rows(o, shape):
+    """The polyphase conv2d's ``(1, 2, Rh, m n)`` as the merged
+    ``shape = (2Rh, m, n)``."""
+    return torch.stack([o[0, 0], o[0, 1]], 1).reshape(shape)
+
+
+def _modwt_taps(wt):
+    g, h = modwt_ops.modwt_filter_pair(wt)
+    return g, h, len(g)
+
+
+def library_modwt_fw(v, wt, j):
+    """One dilated conv1d with 2 output channels on ``v (B, N)`` wrapped
+    beforehand: output ``(B, 2, N)`` = (v1, w1)."""
+    g, h, K = _modwt_taps(wt)
+    B, N = v.shape
+    dil = 2 ** (j - 1)
+    reach = (K - 1) * dil
+    vp = v[:, _wrap_index(N + reach, -reach, N, v.device)][:, None]
+    vp = vp.contiguous()
+    wgt = torch.from_numpy(np.stack([g[::-1], h[::-1]]).copy())[:, None]
+    wgt = wgt.to(v)
+    return lambda: F.conv1d(vp, wgt, dilation=dil)
+
+
+def library_modwt_inv(v1, w1, wt, j):
+    """One dilated conv1d with 2 input channels (v1, w1), wrapped
+    beforehand: output ``(B, 1, N)``."""
+    g, h, K = _modwt_taps(wt)
+    B, N = v1.shape
+    dil = 2 ** (j - 1)
+    idx = _wrap_index(N + (K - 1) * dil, 0, N, v1.device)
+    inp = torch.stack([v1[:, idx], w1[:, idx]], 1).contiguous()
+    wgt = torch.from_numpy(np.stack([g, h]))[None].to(v1)
+    return lambda: F.conv1d(inp, wgt, dilation=dil)
+
+
 # --- phases ------------------------------------------------------------------
 
 def phase_device():
@@ -289,6 +391,16 @@ def phase_build():
                       for p in build.SOURCES],
           "kernels": len(regs), "max_registers": max(regs),
           "spill_bytes": sum(spills)})
+
+
+def check_all(phase, errs, case, dt, tol, worst):
+    """Require every error of one case within ``tol``; keep the worst per
+    kernel and dtype."""
+    for name, e in errs.items():
+        require(e <= tol, f"{phase} {name} {case} {dt}: rel err {e:.3e} > "
+                f"{tol:.1e}")
+        key = f"{name}/{str(dt)[6:]}"
+        worst[key] = max(worst.get(key, 0.0), e)
 
 
 def phase_kernels(dev):
@@ -330,11 +442,7 @@ def phase_kernels(dev):
                     got_ti = launched("tail_inv",
                                       lambda: tail2d.tail_inv(ref_t, wt, Lt))
                     errs["tail_inv"] = rel_err(got_ti, ref_ti)
-                for name, e in errs.items():
-                    require(e <= tol, f"{name} {wname} {dt} {(m, n)}: "
-                            f"rel err {e:.3e} > {tol:.1e}")
-                    key = f"{name}/{str(dt)[6:]}"
-                    worst[key] = max(worst.get(key, 0.0), e)
+                check_all("kernels", errs, (wname, m, n), dt, tol, worst)
                 cases += 1
     emit({"phase": "kernels", "cases": cases, "batch": BATCH,
           "tolerance": {str(k)[6:]: v for k, v in TOL.items()},
@@ -386,14 +494,81 @@ def phase_kernels1d(dev):
                     got_ti = launched("tail1d_inv", lambda: tail1d.tail1d_inv(
                         ref_t, wt, Lt))
                     errs["tail1d_inv"] = rel_err(got_ti, ref_ti)
-                for name, e in errs.items():
-                    require(e <= tol, f"{name} {wname} {dt} {(B, n)}: "
-                            f"rel err {e:.3e} > {tol:.1e}")
-                    key = f"{name}/{str(dt)[6:]}"
-                    worst[key] = max(worst.get(key, 0.0), e)
+                check_all("kernels1d", errs, (wname, B, n), dt, tol, worst)
                 cases += 1
     emit({"phase": "kernels1d", "cases": cases,
           "rows": [list(r) for r in rows],
+          "tolerance": {str(k)[6:]: v for k, v in TOL.items()},
+          "worst_rel_err": worst})
+
+
+def phase_kernels3d(dev):
+    rng = np.random.default_rng(3)
+    worst = {}
+    cases = 0
+    nan = float("nan")
+    for (wname, kind) in WAVELETS:
+        wt = wavelet(wname, kind)
+        for dt, tol in TOL.items():
+            for B, R, C in SHAPES_A0:
+                base = torch.from_numpy(rng.standard_normal(
+                    (B, R + 3, C + 7))).to(dev).to(dt)
+                x = base[:, 1:R + 1, 2:C + 2]   # gaps between rows, items
+                # the outputs in the 3-D driver's layout: rows of (R/2, B, C)
+                a = torch.full((R // 2, B, C), nan, dtype=dt,
+                               device=dev).permute(1, 0, 2)
+                d = torch.full((R // 2, B, C + 1), nan, dtype=dt,
+                               device=dev)[:, :, :C].permute(1, 0, 2)
+                errs = {}
+                ra, rd = axis0.axis0_fw_plain(x, wt)
+                launched("axis0_fw", lambda: axis0.axis0_fw(x, wt, a, d))
+                errs["axis0_fw"] = max(rel_err(a, ra), rel_err(d, rd))
+                ri = axis0.axis0_inv_plain(a, d, wt)
+                gi = launched("axis0_inv", lambda: axis0.axis0_inv(a, d, wt))
+                errs["axis0_inv"] = rel_err(gi, ri)
+                corner = torch.from_numpy(rng.standard_normal(
+                    ((B + 1) // 2, R // 2, (C + 1) // 2))).to(dev).to(dt)
+                rc = axis0.axis0_inv_plain(a, d, wt, corner=corner)
+                gc = launched("axis0_inv", lambda: axis0.axis0_inv(
+                    a, d, wt, corner=corner))
+                errs["axis0_inv_corner"] = rel_err(gc, rc)
+                check_all("kernels3d", errs, (wname, B, R, C), dt, tol,
+                          worst)
+                cases += 1
+    emit({"phase": "kernels3d", "cases": cases,
+          "shapes": [list(r) for r in SHAPES_A0],
+          "tolerance": {str(k)[6:]: v for k, v in TOL.items()},
+          "worst_rel_err": worst})
+
+
+def phase_kernelsmodwt(dev):
+    rng = np.random.default_rng(4)
+    worst = {}
+    cases = 0
+    for (wname, kind) in WAVELETS_MODWT:
+        wt = wavelet(wname, kind)
+        for dt, tol in TOL.items():
+            for B, N, j in ROWS_MODWT:
+                v = torch.from_numpy(rng.standard_normal((B, N))).to(
+                    dev).to(dt)
+                # the driver's layout: v1 into a row, w1 into a column
+                cols = torch.full((B, N, 3), float("nan"), dtype=dt,
+                                  device=dev)
+                errs = {}
+                rv, rw = modwt1d.modwt_fw_plain(v, wt, j)
+                launched("modwt_fw", lambda: modwt1d.modwt_fw(
+                    v, wt, j, cols[..., 2], cols[..., 0]))
+                errs["modwt_fw"] = max(rel_err(cols[..., 2], rv),
+                                       rel_err(cols[..., 0], rw))
+                ri = modwt1d.modwt_inv_plain(cols[..., 2], cols[..., 0], wt, j)
+                gi = launched("modwt_inv", lambda: modwt1d.modwt_inv(
+                    cols[..., 2], cols[..., 0], wt, j))
+                errs["modwt_inv"] = rel_err(gi, ri)
+                check_all("kernelsmodwt", errs, (wname, B, N, j), dt, tol,
+                          worst)
+                cases += 1
+    emit({"phase": "kernelsmodwt", "cases": cases,
+          "rows": [list(r) for r in ROWS_MODWT],
           "tolerance": {str(k)[6:]: v for k, v in TOL.items()},
           "worst_rel_err": worst})
 
@@ -410,10 +585,9 @@ def phase_main(x):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, plain = counts()
-    expected = {"level_fw": k_fw, "tail_fw": int(k_fw < LEVELS),
-                "level_inv": k_inv, "tail_inv": int(k_inv < LEVELS),
-                "level1d_fw": 0, "level1d_inv": 0, "tail1d_fw": 0,
-                "tail1d_inv": 0}
+    expected = {k: 0 for k in launches}
+    expected.update({"level_fw": k_fw, "tail_fw": int(k_fw < LEVELS),
+                     "level_inv": k_inv, "tail_inv": int(k_inv < LEVELS)})
     require(launches == expected, f"route {launches} == {expected}")
     require(not any(plain.values()), f"no plain version ran: {plain}")
     require(y.shape == x.shape and y.dtype == x.dtype, "packed shape")
@@ -446,19 +620,15 @@ def phase_main(x):
 
 
 def inputs1d(dev):
-    """The 1-D inputs, drawn as bench.py:180-193 draws them from
-    default_rng(1) (the 2^20 signal first, then the (512, 8192) and 256^3
-    arrays of its other keys, then the (4096, 4096) rows), and the 2^24
-    signal drawn next."""
+    """The inputs of the 1-D, MODWT and 3-D paths, drawn as
+    bench.py:180-193 draws them from default_rng(1) (the 2^20 signal, the
+    (512, 8192) rows, the 256^3 volume, the (4096, 4096) rows), and the
+    2^24 signal drawn next."""
     rng = np.random.default_rng(1)
-    x20 = rng.standard_normal(1 << 20).astype(np.float32)
-    rng.standard_normal((512, 8192))
-    rng.standard_normal((256, 256, 256))
-    xb = rng.standard_normal((4096, 4096)).astype(np.float32)
-    x24 = rng.standard_normal(1 << 24).astype(np.float32)
-    return {(1 << 20,): torch.from_numpy(x20).to(dev),
-            (4096, 4096): torch.from_numpy(xb).to(dev),
-            (1 << 24,): torch.from_numpy(x24).to(dev)}
+    shapes = ((1 << 20,), MODWT_SHAPE, (SIZE3D,) * 3, (4096, 4096),
+              (1 << 24,))
+    return {shape: torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(dev) for shape in shapes}
 
 
 def path_fns(shape, wt, L, packet, plain=False):
@@ -480,38 +650,45 @@ def path_fns(shape, wt, L, packet, plain=False):
             lambda v: w.idwt(v, wt, L, ndt=1))
 
 
+def run_route(name, fw, inv, x, route):
+    """One forward and one inverse call with the counts set to 0 just
+    before and read just after: the launches must be ``route`` (every
+    other kernel 0) and no plain version may run."""
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y = fw(x)
+    xr = inv(y)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = counts()
+    expected = {k: 0 for k in launches}
+    expected.update(route)
+    require(launches == expected, f"{name} route {launches}")
+    require(not any(plain.values()), f"{name}: no plain version ran")
+    require(bool(torch.isfinite(y).all()), f"{name} finite")
+    rt = (xr - x).abs().max().item()
+    require(rt <= 1e-3, f"{name} f32 round trip {rt:.3e} <= 1e-3")
+    return y, launches, wall, rt
+
+
 def phase_main1d(xs):
     total = {}
     for name, shape, (wname, kind), L, packet in PATHS1D:
         wt = wavelet(wname, kind)
         x = xs[shape]
         fw, inv = path_fns(shape, wt, L, packet)
-        reset_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        y = fw(x)
-        xr = inv(y)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches, plain = counts()
-        expected = {k: 0 for k in launches}
-        expected.update(ROUTES1D[name])
-        require(launches == expected, f"{name} route {launches}")
-        require(not any(plain.values()), f"{name}: no plain version ran")
+        y, launches, wall, rt = run_route(name, fw, inv, x, ROUTES1D[name])
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
         require(y.shape == x.shape and y.dtype == x.dtype, f"{name} shape")
-        require(bool(torch.isfinite(y).all()), f"{name} finite")
-        rt = (xr - x).abs().max().item()
-        require(rt <= 1e-3, f"{name} f32 round trip {rt:.3e} <= 1e-3")
         pfw, _ = path_fns(shape, wt, L, packet, plain=True)
         e64 = rel_err(y, pfw(x.double()))
         require(e64 <= 1e-3, f"{name} f32 vs plain f64 {e64:.3e} <= 1e-3")
         out = {"phase": "main1d", "path": name, "shape": list(shape),
                "levels": L, "dtype": "float32", "launches": ROUTES1D[name],
-               "plain_calls": sum(plain.values()),
-               "wall_s_first_call_pair": wall, "roundtrip_max_abs_err": rt,
-               "f32_vs_plain_f64_rel_err": e64}
+               "plain_calls": 0, "wall_s_first_call_pair": wall,
+               "roundtrip_max_abs_err": rt, "f32_vs_plain_f64_rel_err": e64}
         if name == "single_2e20_db2_L20":
             x64 = x.double()
             rt64 = (inv(fw(x64)) - x64).abs().max().item()
@@ -519,6 +696,61 @@ def phase_main1d(xs):
             out["f64_roundtrip_max_abs_err"] = rt64
         emit(out)
     return total
+
+
+def phase_main3d(x3):
+    wt = wavelet("cdf97", "lifting")
+    L = LEVELS3D
+    route = {"level_fw": L, "axis0_fw": L, "axis0_inv": L, "level_inv": L}
+    y, launches, wall, rt = run_route(
+        "3d", lambda v: w.dwt(v, wt, L), lambda v: w.idwt(v, wt, L), x3,
+        route)
+    require(y.shape == x3.shape and y.dtype == x3.dtype, "3d packed shape")
+    y64 = dwt3d.dwt3(x3.double(), wt, L, plain=True)
+    e32 = rel_err(y, y64)
+    require(e32 <= 1e-3, f"256^3 f32 vs plain f64 {e32:.3e} <= 1e-3")
+    del y, y64
+    x128 = x3[:128, :128, :128].double()
+    rt64 = (w.idwt(w.dwt(x128, wt, L), wt, L) - x128).abs().max().item()
+    require(rt64 <= 1e-12, f"128^3 f64 round trip {rt64:.3e} <= 1e-12")
+    xs = x3[:32, :32, :32].double()
+    es = rel_err(w.dwt(xs, wt, L), lifting.dwt_nd_lifting(xs, wt, L, 3))
+    require(es <= 1e-12, f"32^3 f64 vs lifting engine {es:.3e} <= 1e-12")
+    emit({"phase": "main3d", "shape": list(x3.shape), "levels": L,
+          "dtype": "float32", "launches": route,
+          "wall_s_first_call_pair": wall, "roundtrip_max_abs_err": rt,
+          "f32_vs_plain_f64_rel_err": e32,
+          "f64_roundtrip_128_max_abs_err": rt64,
+          "f64_vs_lifting_engine_32_rel_err": es})
+    return launches
+
+
+def phase_mainmodwt(xm):
+    wt = wavelet("db4", "filter")
+    L = MODWT_LEVELS
+    route = {"modwt_fw": L, "modwt_inv": L}
+    W, launches, wall, rt = run_route(
+        "modwt", lambda v: w.modwt(v, wt, L), lambda v: w.imodwt(v, wt), xm,
+        route)
+    require(W.shape == (*xm.shape, L + 1) and W.dtype == xm.dtype,
+            "modwt output shape")
+    W64 = modwt1d.modwt(xm.double(), wt, L, plain=True)
+    e32 = rel_err(W, W64)
+    require(e32 <= 1e-3, f"modwt f32 vs plain f64 {e32:.3e} <= 1e-3")
+    del W, W64
+    x64 = xm.double()
+    rt64 = (w.imodwt(w.modwt(x64, wt, L), wt) - x64).abs().max().item()
+    require(rt64 <= 1e-12, f"modwt f64 round trip {rt64:.3e} <= 1e-12")
+    xs = x64[:8]
+    es = rel_err(w.modwt(xs, wt, L), modwt_ops.modwt(xs, wt, L))
+    require(es <= 1e-12, f"modwt f64 vs torch engine {es:.3e} <= 1e-12")
+    emit({"phase": "mainmodwt", "shape": list(xm.shape), "levels": L,
+          "dtype": "float32", "launches": route,
+          "wall_s_first_call_pair": wall, "roundtrip_max_abs_err": rt,
+          "f32_vs_plain_f64_rel_err": e32,
+          "f64_roundtrip_max_abs_err": rt64,
+          "f64_vs_torch_engine_rel_err": es})
+    return launches
 
 
 def kernel_row(name, kern, plain, outs, tol, library=None, lib_ref=None):
@@ -542,6 +774,25 @@ def kernel_row(name, kern, plain, outs, tol, library=None, lib_ref=None):
         row["library_ms"] = P.med3(lambda _: library(), x0, 10) * 1e3
         row["library_rel_err"] = lrel
     return row
+
+
+def path_times(fw, inv, xt, geometric, iters=10):
+    """A path's forward and inverse times (med3), host times, rates and
+    sol_fraction against the same-run copy floor of ``xt``."""
+    fw_s = P.med3(fw, xt, iters)
+    yt = fw(xt)
+    inv_s = P.med3(inv, yt, iters)
+    copy_s, bw = P.copy_bandwidth(xt, iters)
+    out = {"fw_ms": fw_s * 1e3, "inv_ms": inv_s * 1e3,
+           "fw_host_ms": P.enqueue_time(fw, xt) * 1e3,
+           "inv_host_ms": P.enqueue_time(inv, yt) * 1e3,
+           "fw_gsps": xt.numel() / fw_s / 1e9,
+           "inv_gsps": xt.numel() / inv_s / 1e9,
+           "copy_ms": copy_s * 1e3, "copy_gbps": bw / 1e9,
+           "fw_sol_fraction": P.sol_fraction(fw_s, xt, bw, geometric),
+           "inv_sol_fraction": P.sol_fraction(inv_s, xt, bw, geometric)}
+    del yt
+    return out
 
 
 def phase_times(dev, x):
@@ -617,22 +868,8 @@ def phase_times1d(xs):
                                 if name.startswith("batched") else ())
         entry = {}
         for tag, xt in tags:
-            fw, inv = path_fns(shape, wt, L, packet)
-            fw_s = P.med3(fw, xt, 10)
-            yt = fw(xt)
-            inv_s = P.med3(inv, yt, 10)
-            copy_s, bw = P.copy_bandwidth(xt, 10)
-            entry[tag] = {"fw_ms": fw_s * 1e3, "inv_ms": inv_s * 1e3,
-                          "fw_host_ms": P.enqueue_time(fw, xt) * 1e3,
-                          "inv_host_ms": P.enqueue_time(inv, yt) * 1e3,
-                          "fw_gsps": xt.numel() / fw_s / 1e9,
-                          "inv_gsps": xt.numel() / inv_s / 1e9,
-                          "copy_ms": copy_s * 1e3, "copy_gbps": bw / 1e9,
-                          "fw_sol_fraction": P.sol_fraction(fw_s, xt, bw,
-                                                            geometric),
-                          "inv_sol_fraction": P.sol_fraction(inv_s, xt, bw,
-                                                             geometric)}
-            del yt
+            entry[tag] = path_times(*path_fns(shape, wt, L, packet), xt,
+                                    geometric)
         pfw, pinv = path_fns(shape, wt, L, packet, plain=True)
         entry["f32"]["plain_fw_ms"] = P.time_fn(pfw, x, 1, chain=False) * 1e3
         y = path_fns(shape, wt, L, packet)[0](x)
@@ -683,6 +920,100 @@ def phase_times1d(xs):
     return rows
 
 
+def phase_times3d(x3):
+    wt = wavelet("cdf97", "lifting")
+    L = LEVELS3D
+    fw = lambda v: w.dwt(v, wt, L)          # noqa: E731
+    inv = lambda v: w.idwt(v, wt, L)        # noqa: E731
+    out = {"phase": "times3d", "shape": list(x3.shape), "levels": L}
+    for tag, xt in (("f32", x3), ("bf16", x3.to(torch.bfloat16))):
+        out[tag] = path_times(fw, inv, xt, P.geometric3d(L))
+    out["f32"]["plain_fw_ms"] = P.time_fn(
+        lambda v: dwt3d.dwt3(v, wt, L, plain=True), x3, 1, chain=False) * 1e3
+    y = fw(x3)
+    out["f32"]["plain_inv_ms"] = P.time_fn(
+        lambda v: dwt3d.idwt3(v, wt, L, plain=True), y, 1, chain=False) * 1e3
+    emit(out)
+
+    # I and J at level 1 of the 256^3 volume, in the driver's layout: I
+    # from the contiguous scratch s (kernel A's quadrants of x3) into the
+    # two halves of y, J back
+    D = x3.shape[0]
+    s = torch.empty_like(x3)
+    level2d.level_fw(x3, wt, dwt3d._quads(s))
+    yl = torch.empty_like(x3)
+    a, d = dwt3d._rows(yl[: D // 2]), dwt3d._rows(yl[D // 2:])
+    sr = torch.empty_like(x3)
+    rows = {}
+    rows["axis0_fw"] = kernel_row(
+        "axis0_fw", lambda: axis0.axis0_fw(dwt3d._rows(s), wt, a, d),
+        lambda: axis0.axis0_fw_plain(dwt3d._rows(s), wt, a, d), (a, d),
+        TOL[x3.dtype], library_axis0_fw(s, wt),
+        lambda o: [dwt3d._rows(o[0, i].view(D // 2, *x3.shape[1:]))
+                   for i in (0, 1)])
+    rows["axis0_inv"] = kernel_row(
+        "axis0_inv", lambda: axis0.axis0_inv(a, d, wt, out=dwt3d._rows(sr)),
+        lambda: axis0.axis0_inv_plain(a, d, wt, out=dwt3d._rows(sr)),
+        (dwt3d._rows(sr),), TOL[x3.dtype],
+        library_axis0_inv(yl[: D // 2], yl[D // 2:], wt),
+        lambda o: [dwt3d._rows(interleave_rows(o, x3.shape))])
+    nbytes = 2 * x3.numel() * 4
+    for name, inverse in (("axis0_fw", False), ("axis0_inv", True)):
+        rows[name]["bound_ms"], rows[name]["bound_by"] = bound(
+            nbytes, taps(wt, inverse) * x3.numel())
+        rows[name]["copy_bound_ms"] = out["f32"]["copy_ms"]
+    return rows
+
+
+def phase_timesmodwt(xm):
+    wt = wavelet("db4", "filter")
+    L = MODWT_LEVELS
+    fw = lambda v: w.modwt(v, wt, L)        # noqa: E731
+    inv = lambda v: w.imodwt(v, wt)         # noqa: E731
+    out = {"phase": "timesmodwt", "shape": list(xm.shape), "levels": L}
+    for tag, xt in (("f32", xm), ("bf16", xm.to(torch.bfloat16))):
+        out[tag] = path_times(fw, inv, xt, P.geometric_modwt(L))
+    out["f32"]["plain_fw_ms"] = P.time_fn(
+        lambda v: modwt1d.modwt(v, wt, L, plain=True), xm, 1,
+        chain=False) * 1e3
+    W = fw(xm)
+    out["f32"]["plain_inv_ms"] = P.time_fn(
+        lambda v: modwt1d.imodwt(v, wt, plain=True), W, 1, chain=False) * 1e3
+
+    # K and M at level 1, in the driver's layout: K from x into a scratch
+    # row (v1) and W's column 0 (w1, element stride L+1); M back
+    v1 = torch.empty_like(xm)
+    w1 = W[..., 0]
+    xr = torch.empty_like(xm)
+    rows = {}
+    rows["modwt_fw"] = kernel_row(
+        "modwt_fw", lambda: modwt1d.modwt_fw(xm, wt, 1, v1, w1),
+        lambda: modwt1d.modwt_fw_plain(xm, wt, 1, v1, w1), (v1, w1),
+        TOL[xm.dtype], library_modwt_fw(xm, wt, 1),
+        lambda o: [o[:, 0], o[:, 1]])
+    rows["modwt_inv"] = kernel_row(
+        "modwt_inv", lambda: modwt1d.modwt_inv(v1, w1, wt, 1, out=xr),
+        lambda: modwt1d.modwt_inv_plain(v1, w1, wt, 1, out=xr), (xr,),
+        TOL[xm.dtype], library_modwt_inv(v1, w1, wt, 1),
+        lambda o: [o[:, 0]])
+    # the column store against its alternative: K into a contiguous plane,
+    # and the permuted copy of (L+1, B, N) planes into (B, N, L+1)
+    wc = torch.empty_like(xm)
+    planes = torch.empty((L + 1, *xm.shape), dtype=xm.dtype, device=xm.device)
+    out["f32"]["modwt_fw_level1_contiguous_ms"] = P.med3(
+        lambda _: modwt1d.modwt_fw(xm, wt, 1, v1, wc), xm, 20) * 1e3
+    out["f32"]["modwt_fw_level1_column_ms"] = rows["modwt_fw"]["ms"]
+    out["f32"]["permuted_copy_ms"] = P.med3(
+        lambda _: W.copy_(planes.permute(1, 2, 0)), xm, 20) * 1e3
+    emit(out)
+    nbytes = 3 * xm.numel() * 4
+    for name in ("modwt_fw", "modwt_inv"):
+        rows[name]["bound_ms"], rows[name]["bound_by"] = bound(
+            nbytes, 4 * len(wt.qmf) * xm.numel())
+        rows[name]["copy_bound_ms"] = out["f32"]["copy_ms"] * 1.5
+    return rows
+
+
 def trace(fn, x, calls=5):
     """torch.profiler over ``calls`` calls of ``fn(x)``: the device time of
     each of this repo's kernel launches in the first call, and the device's
@@ -723,6 +1054,7 @@ def trace(fn, x, calls=5):
 
 def phase_trace(x, xs):
     cdf = w.wavelet(w.wt.cdf97, "lifting")
+    db4 = wavelet("db4", "filter")
     x2 = x[:2048, :2048].contiguous()
     runs = [("2d_16384_cdf97_L8", x, (lambda v: w.dwt(v, cdf, LEVELS),
                                       lambda v: w.idwt(v, cdf, LEVELS))),
@@ -731,6 +1063,12 @@ def phase_trace(x, xs):
     for name, shape, (wname, kind), L, packet in PATHS1D:
         runs.append((name, xs[shape],
                      path_fns(shape, wavelet(wname, kind), L, packet)))
+    runs.append(("3d_256_cdf97_L3", xs[(SIZE3D,) * 3],
+                 (lambda v: w.dwt(v, cdf, LEVELS3D),
+                  lambda v: w.idwt(v, cdf, LEVELS3D))))
+    runs.append(("modwt_512x8192_db4_L6", xs[MODWT_SHAPE],
+                 (lambda v: w.modwt(v, db4, MODWT_LEVELS),
+                  lambda v: w.imodwt(v, db4))))
     for name, xt, (fw, inv) in runs:
         yt = fw(xt)
         emit({"phase": "trace", "path": name, "fw": trace(fw, xt),
@@ -744,23 +1082,35 @@ def main():
     phase_build()
     phase_kernels(dev)
     phase_kernels1d(dev)
+    phase_kernels3d(dev)
+    phase_kernelsmodwt(dev)
     x = torch.from_numpy(np.random.default_rng(0).standard_normal(
         (SIZE, SIZE)).astype(np.float32)).to(dev)
+    # each kernel's launches on its own main path
     launches = phase_main(x)
     xs = inputs1d(dev)
     launches.update({k: v for k, v in phase_main1d(xs).items()
                      if k.endswith(("1d_fw", "1d_inv"))})
+    launches.update({k: v for k, v in phase_main3d(xs[(SIZE3D,) * 3]).items()
+                     if k.startswith("axis0")})
+    launches.update({k: v for k, v in phase_mainmodwt(xs[MODWT_SHAPE]).items()
+                     if k.startswith("modwt")})
     require(all(v > 0 for v in launches.values()),
             f"every kernel launched on its main path: {launches}")
     rows = phase_times(dev, x)
     torch.cuda.empty_cache()
     rows.update(phase_times1d(xs))
     torch.cuda.empty_cache()
+    rows.update(phase_times3d(xs[(SIZE3D,) * 3]))
+    rows.update(phase_timesmodwt(xs[MODWT_SHAPE]))
+    torch.cuda.empty_cache()
     phase_trace(x, xs)
     src = {"level_fw": "level2d.cu", "level_inv": "level2d.cu",
            "tail_fw": "tail2d.cu", "tail_inv": "tail2d.cu",
            "level1d_fw": "level1d.cu", "level1d_inv": "level1d.cu",
-           "tail1d_fw": "tail1d.cu", "tail1d_inv": "tail1d.cu"}
+           "tail1d_fw": "tail1d.cu", "tail1d_inv": "tail1d.cu",
+           "axis0_fw": "axis0.cu", "axis0_inv": "axis0.cu",
+           "modwt_fw": "modwt1d.cu", "modwt_inv": "modwt1d.cu"}
     replaces = {"level_fw": "wavelets_tpu/ops/pallas/mxu2d.py:1610",
                 "level_inv": "wavelets_tpu/ops/pallas/mxu2d.py:1236",
                 "tail_fw": "wavelets_tpu/ops/pallas/tail2d.py:52",
@@ -768,7 +1118,11 @@ def main():
                 "level1d_fw": "wavelets_tpu/ops/pallas/dwt1d.py:356",
                 "level1d_inv": "wavelets_tpu/ops/pallas/dwt1d.py:379",
                 "tail1d_fw": "wavelets_tpu/ops/pallas/pyramid1d.py:236",
-                "tail1d_inv": "wavelets_tpu/ops/pallas/pyramid1d.py:400"}
+                "tail1d_inv": "wavelets_tpu/ops/pallas/pyramid1d.py:400",
+                "axis0_fw": "wavelets_tpu/ops/pallas/axis0.py:173",
+                "axis0_inv": "wavelets_tpu/ops/pallas/axis0.py:214",
+                "modwt_fw": "wavelets_tpu/ops/pallas/modwt1d.py:85",
+                "modwt_inv": "wavelets_tpu/ops/pallas/modwt1d.py:93"}
     emit({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"wavelets_tpu_torch/csrc/{src[name]}",

@@ -16,8 +16,8 @@ import torch
 
 import wavelets_tpu_torch as wtt
 from wavelets_tpu_torch import profiling
-from wavelets_tpu_torch.ops import (build, dwt1d, level1d, level2d,
-                                    pyramid2d, tail1d, tail2d)
+from wavelets_tpu_torch.ops import (axis0, build, dwt1d, level1d, level2d,
+                                    modwt1d, pyramid2d, tail1d, tail2d)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -35,15 +35,25 @@ def test_import_leaves_jax_out():
         "import sys\n"
         "import wavelets_tpu_torch\n"
         "import wavelets_tpu_torch.profiling\n"
-        "from wavelets_tpu_torch.ops import (bands, build, dwt1d, "
-        "filter_fb, level1d, level2d, lifting, pyramid2d, scratch, tail1d, "
-        "tail2d, wpt)\n"
+        "from wavelets_tpu_torch.ops import (axis0, bands, build, dwt1d, "
+        "dwt3d, filter_fb, level1d, level2d, lifting, modwt, modwt1d, "
+        "pyramid2d, scratch, tail1d, tail2d, wpt)\n"
+        "from wavelets_tpu_torch import subbands, transforms\n"
         "from wavelets_tpu_torch.wt import convert\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'wavelets_tpu' or m.startswith('wavelets_tpu.')]\n"
         "assert not bad, bad\n"
         "assert 'triton' not in sys.modules\n")
     assert res.returncode == 0, res.stderr
+
+
+def test_the_jax_packages_public_surface_is_exported():
+    """Every transform, subband and polyphase name of wavelets_tpu's
+    surface (wavelets_tpu/__init__.py) exists in the port."""
+    for name in ("dwt", "idwt", "wpt", "iwpt", "modwt", "imodwt", "dwtc",
+                 "idwtc", "dwt_subbands", "idwt_subbands", "to_packed",
+                 "from_packed", "split_last", "merge_last"):
+        assert name in wtt.__all__ and callable(getattr(wtt, name)), name
 
 
 def test_import_builds_nothing():
@@ -55,8 +65,11 @@ def test_import_builds_nothing():
 
 
 def test_build_key_follows_sources():
-    assert [p.name for p in build.SOURCES] == ["level1d.cu", "level2d.cu",
-                                               "tail1d.cu", "tail2d.cu"]
+    assert [p.name for p in build.SOURCES] == [
+        "axis0.cu", "level1d.cu", "level2d.cu", "modwt1d.cu", "tail1d.cu",
+        "tail2d.cu"]
+    assert set(build._SIGNATURES) >= {"wtt_axis0_fw", "wtt_axis0_inv",
+                                      "wtt_modwt_fw", "wtt_modwt_inv"}
     key = build._key()
     assert len(key) == 16 and key == build._key()
     assert "arch=compute_90a,code=sm_90a" in build.FLAGS
@@ -75,7 +88,7 @@ def test_compile_needs_nvcc(tmp_path):
     assert not (tmp_path / "key").exists()
 
 
-_MODULES = (level2d, tail2d, level1d, tail1d)
+_MODULES = (level2d, tail2d, level1d, tail1d, axis0, modwt1d)
 
 
 def _calls(name):
@@ -88,13 +101,15 @@ def _calls(name):
 
 @pytest.mark.parametrize("name", ["level_fw", "level_inv", "tail_fw",
                                   "tail_inv", "level1d_fw", "level1d_inv",
-                                  "tail1d_fw", "tail1d_inv"])
+                                  "tail1d_fw", "tail1d_inv", "axis0_fw",
+                                  "axis0_inv", "modwt_fw", "modwt_inv"])
 def test_cpu_tensor_takes_plain_version(name):
     wt = wtt.wavelet(wtt.wt.cdf97, "lifting")
     x = torch.as_tensor(np.random.default_rng(5).standard_normal((2, 16, 8)))
     quads = level2d.level_fw_plain(x, wt)
     rows = x[0]
     s, d = level1d.level1d_fw_plain(rows, wt)
+    db4 = wtt.wavelet(wtt.wt.db4)
     run = {
         "level_fw": lambda: level2d.level_fw(x, wt),
         "level_inv": lambda: level2d.level_inv(*quads, wt),
@@ -104,6 +119,10 @@ def test_cpu_tensor_takes_plain_version(name):
         "level1d_inv": lambda: level1d.level1d_inv(s, d, wt),
         "tail1d_fw": lambda: tail1d.tail1d_fw(rows, wt, 3),
         "tail1d_inv": lambda: tail1d.tail1d_inv(rows, wt, 3),
+        "axis0_fw": lambda: axis0.axis0_fw(x, wt),
+        "axis0_inv": lambda: axis0.axis0_inv(x, x.clone(), wt),
+        "modwt_fw": lambda: modwt1d.modwt_fw(rows, db4, 2),
+        "modwt_inv": lambda: modwt1d.modwt_inv(rows, rows.clone(), db4, 2),
     }[name]
     launches, plain = _calls(name)
     run()
@@ -183,6 +202,45 @@ def test_1d_wrappers_check_their_inputs():
                           out=torch.zeros((2, 8), dtype=torch.float64))
 
 
+def test_3d_and_modwt_wrappers_check_their_inputs():
+    wt = wtt.wavelet(wtt.wt.haar, "lifting")
+    db4 = wtt.wavelet(wtt.wt.db4)
+    x = torch.zeros((2, 8, 4))
+    with pytest.raises(ValueError):
+        axis0.axis0_fw(torch.zeros((2, 7, 4)), wt)               # odd rows
+    with pytest.raises(ValueError):
+        axis0.axis0_fw(torch.zeros((8, 4)), wt)                  # no batch
+    with pytest.raises(TypeError):
+        axis0.axis0_fw(torch.zeros((2, 8, 4), dtype=torch.int32), wt)
+    with pytest.raises(ValueError):
+        axis0.axis0_fw(torch.zeros((2, 8, 8))[..., ::2], wt)     # stride
+    with pytest.raises(ValueError):
+        axis0.axis0_fw(x, wt, torch.zeros((2, 4, 4)))            # a alone
+    with pytest.raises(ValueError):                              # aliasing
+        axis0.axis0_fw(x, wt, x[:, :4], torch.zeros((2, 4, 4)))
+    a, d = axis0.axis0_fw(x, wt)
+    with pytest.raises(ValueError):
+        axis0.axis0_inv(a, d.double(), wt)
+    y = torch.zeros((2, 8, 4))
+    with pytest.raises(ValueError):                              # aliasing
+        axis0.axis0_inv(y[:, :4], y[:, 4:], wt, out=y)
+    with pytest.raises(ValueError):                              # aliasing
+        axis0.axis0_inv(a, d, wt, out=y, corner=y[:1, :4, :2])
+    v = torch.zeros((2, 16))
+    with pytest.raises(ValueError):
+        modwt1d.modwt_fw(v, db4, 0)                              # level 0
+    with pytest.raises(ValueError):
+        modwt1d.modwt_fw(torch.zeros(16), db4, 1)                # no batch
+    with pytest.raises(TypeError):
+        modwt1d.modwt_fw(v.to(torch.int32), db4, 1)
+    with pytest.raises(ValueError):                              # aliasing
+        modwt1d.modwt_fw(v, db4, 1, v, torch.zeros((2, 16)))
+    with pytest.raises(ValueError):
+        modwt1d.modwt_inv(v, torch.zeros((2, 8)), db4, 1)
+    with pytest.raises(TypeError, match="OrthoFilter"):          # lifting
+        modwt1d.modwt_fw(v, wt, 1)
+
+
 @pytest.mark.parametrize("n, L, dtype, k", [
     (4096, 8, torch.float32, 0), (1 << 20, 20, torch.float32, 6),
     (1 << 24, 8, torch.float32, 8), (1 << 20, 10, torch.float32, 6),
@@ -232,6 +290,22 @@ def test_sol_fraction_definition():
     x = torch.zeros((1024, 1024))
     floor_s = 2 * x.numel() * 4 * (4 / 3) / 1e12
     assert profiling.sol_fraction(floor_s * 2, x, 1e12) == pytest.approx(0.5)
+
+
+@pytest.mark.parametrize("L, geometric", [(1, 1.0), (3, 1 + 1 / 8 + 1 / 64)])
+def test_sol_fraction_of_a_3d_pyramid(L, geometric):
+    """One read and one write of the active volume per level."""
+    assert profiling.geometric3d(L) == pytest.approx(geometric)
+
+
+def test_sol_fraction_of_the_modwt():
+    """Per level one plane read and two written (or two read, one written):
+    6 levels move 18 planes, which sol_fraction counts as 2 x 9."""
+    x = torch.zeros((512, 8192))
+    floor_s = 18 * x.numel() * 4 / 1e12
+    assert profiling.sol_fraction(floor_s, x, 1e12,
+                                  profiling.geometric_modwt(6)) == \
+        pytest.approx(1)
 
 
 @pytest.mark.parametrize("L, geometric", [(1, 1.0), (2, 1.5),

@@ -69,7 +69,7 @@ CASES = [
     ("cdf97", "lifting", (384,), None, None),     # 3 * 2^7
     ("db4", "filter", (3, 384), 7, 1),
     ("haar", "lifting", (2,), None, None),
-    # routes with no kernel yet: the torch engines
+    # the 3-D driver (ops/dwt3d.py)
     ("cdf97", "lifting", (16, 16, 16), 2, None),
     ("db2", "filter", (8, 16, 16), 3, 3),
 ]
@@ -206,8 +206,12 @@ def test_the_same_errors_as_the_jax_package():
         J.dwt(np.zeros((16, 16), np.float32), vaid_ref, 2)
     with pytest.raises(ValueError):
         T.dwt(torch.zeros((16, 16)), vaid, 2)
-    with pytest.raises(NotImplementedError):
-        T.dwt(torch.zeros((8, 8), dtype=torch.complex64), wt, 1)
+    # complex input is refused where real input is, on both sides
+    for fn, carrier, z in ((J.dwt, ref, np.zeros((12, 16), np.complex64)),
+                           (T.dwt, wt, torch.zeros((12, 16),
+                                                   dtype=torch.complex64))):
+        with pytest.raises(ValueError):
+            fn(z, carrier, 3)
 
 
 def test_level_zero_is_the_identity():

@@ -1,7 +1,7 @@
 """wavelets_tpu_torch: the PyTorch and CUDA port of ``wavelets_tpu``.
 
-It runs the periodic 2-D DWT, the periodic 1-D DWT (batched rows and
-single long signals, ``ndt=1``) and the wavelet packet transform, with
+It runs the periodic 1-D, 2-D and 3-D DWT (batched rows and single long
+signals for ``ndt=1``), the wavelet packet transform and the MODWT, with
 their inverses, through hand-written CUDA kernels for the H100
 (``csrc/``, built with ``nvcc`` at first use), with a plain PyTorch version
 beside every kernel that a CPU tensor takes.  The other routes run on the
@@ -11,7 +11,10 @@ imports ``torch`` and NumPy, never JAX.
 
 Public surface (the part of ``wavelets_tpu``'s that is ported so far):
 
-  transforms:  dwt, idwt (ndt = 1, 2, 3), wpt, iwpt
+  transforms:  dwt, idwt (ndt = 1, 2, 3), wpt, iwpt, modwt, imodwt, dwtc,
+               idwtc (complex input as two real transforms)
+  subbands:    dwt_subbands, idwt_subbands, to_packed, from_packed
+  polyphase:   split_last, merge_last
   wavelets:    wt.wavelet, wt.cdf97, wt.haar, wt.db4, ... (wt module)
   utilities:   index math, maketree, isvalidtree, testfunction, ...
 """
@@ -32,12 +35,16 @@ from .utils import (
 from .wt import (
     DiscreteWavelet, FilterWavelet, LSWavelet, OrthoFilter, GLS, wavelet,
 )
-from .transforms import dwt, idwt, wpt, iwpt
+from .transforms import dwt, idwt, wpt, iwpt, modwt, imodwt, dwtc, idwtc
+from .ops.lifting import split_last, merge_last
+from .subbands import dwt_subbands, idwt_subbands, to_packed, from_packed
 
 __version__ = "0.1.0"
 
 __all__ = [
-    "wt", "utils", "dwt", "idwt", "wpt", "iwpt",
+    "wt", "utils",
+    "dwt", "idwt", "wpt", "iwpt", "modwt", "imodwt", "dwtc", "idwtc",
+    "dwt_subbands", "idwt_subbands", "to_packed", "from_packed",
     "DiscreteWavelet", "FilterWavelet", "LSWavelet", "OrthoFilter", "GLS",
     "wavelet",
     "detailindex", "detailrange", "detailn",
@@ -48,5 +55,6 @@ __all__ = [
     "iscube", "isdyadic", "sufficientpoweroftwo",
     "maketree", "isvalidtree",
     "mirror", "upsample", "downsample", "wcount", "circshift",
+    "split_last", "merge_last",
     "makewavelet", "testfunction",
 ]

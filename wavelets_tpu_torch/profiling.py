@@ -21,7 +21,7 @@ import time
 import torch
 
 __all__ = ["time_fn", "med3", "enqueue_time", "copy_bandwidth",
-           "sol_fraction", "geometric1d"]
+           "sol_fraction", "geometric1d", "geometric3d", "geometric_modwt"]
 
 
 def _check_cuda(x):
@@ -81,8 +81,9 @@ def sol_fraction(seconds: float, x, copy_bytes_per_s: float,
     ``bench.py`` defines it: one read and one write of the active array per
     level, at the copy floor's rate, divided by the measured time.
     ``geometric`` is the active array's size summed over the levels, as a
-    multiple of ``x``: 4/3 for a 2-D pyramid (the default), and
-    :func:`geometric1d` for a 1-D one."""
+    multiple of ``x``: 4/3 for a 2-D pyramid (the default),
+    :func:`geometric1d` for a 1-D one and :func:`geometric3d` for a 3-D
+    one; :func:`geometric_modwt` states the MODWT's traffic the same way."""
     floor = 2 * x.numel() * x.element_size() * geometric / copy_bytes_per_s
     return floor / seconds
 
@@ -91,3 +92,17 @@ def geometric1d(L: int) -> float:
     """Active row summed over the L levels of a 1-D pyramid, as a multiple
     of the row: 1 + 1/2 + ... = 2 (1 - 2^-L)."""
     return 2 * (1 - 2.0 ** -L)
+
+
+def geometric3d(L: int) -> float:
+    """Active volume summed over the L levels of a 3-D pyramid, as a
+    multiple of the volume: 1 + 1/8 + ... = (8/7) (1 - 8^-L)."""
+    return (8 / 7) * (1 - 8.0 ** -L)
+
+
+def geometric_modwt(L: int) -> float:
+    """The MODWT's floor in the same units: each of the L levels reads one
+    plane of ``x``'s size and writes two (forward), or reads two and writes
+    one (inverse), so 3L planes move, which :func:`sol_fraction` counts as
+    2 * (3L / 2)."""
+    return 1.5 * L

@@ -1,9 +1,13 @@
-"""Public transform API of the port: ``dwt``/``idwt`` and ``wpt``/``iwpt``.
+"""Public transform API of the port: ``dwt``/``idwt``, ``wpt``/``iwpt``,
+``modwt``/``imodwt`` and ``dwtc``/``idwtc``.
 
 The counterpart of ``wavelets_tpu/transforms.py``.  The wavelet carrier
 picks the engine (OrthoFilter -> filter bank, GLS -> lifting) and the
 trailing ``ndt`` axes are transformed (default: the array rank, at most 3;
 leading axes are batch).  Integer and boolean input promotes to float64.
+Complex input runs as two real transforms, ``torch.complex(f(re),
+f(im))``: the coefficients are real, so this is exact (complex64 through
+the float32 route, complex128 through the float64 one).
 
 Device: a ``torch.Tensor`` stays on its own device unless ``device`` is
 given; any other input (a NumPy array, a list, a scalar) is placed on
@@ -11,13 +15,14 @@ given; any other input (a NumPy array, a list, a scalar) is placed on
 that raises: pass ``device="cpu"`` to run on the CPU.
 
 Routing: a periodic boundary with float32, bfloat16 or float64 data goes to
-ops/pyramid2d.py for ``ndt == 2`` and to ops/dwt1d.py for ``ndt == 1``
-(leading axes flatten onto the batch); their level and tail launches run
-the CUDA kernels on a CUDA tensor and their plain versions on a CPU tensor.
-``wpt``/``iwpt`` run one 1-D level launch per tree depth (ops/wpt.py).
-Everything else runs on the torch engines (ops/lifting.py,
-ops/filter_fb.py) on the tensor's own device.  Complex input and the other
-transforms of the JAX package are not ported yet.
+ops/pyramid2d.py for ``ndt == 2``, to ops/dwt1d.py for ``ndt == 1``
+(leading axes flatten onto the batch) and to ops/dwt3d.py for ``ndt == 3``
+(one volume at a time); their launches run the CUDA kernels on a CUDA
+tensor and their plain versions on a CPU tensor.  ``wpt``/``iwpt`` run one
+1-D level launch per tree depth (ops/wpt.py), ``modwt``/``imodwt`` one
+MODWT level launch per level (ops/modwt1d.py).  Everything else runs on
+the torch engines (ops/lifting.py, ops/filter_fb.py, ops/modwt.py) on the
+tensor's own device.
 """
 
 from __future__ import annotations
@@ -27,36 +32,47 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from .utils.indexing import maxtransformlevels, sufficientpoweroftwo
+from .utils.indexing import (maxmodwttransformlevels, maxtransformlevels,
+                             sufficientpoweroftwo)
 from .utils.trees import isvalidtree, maketree
 from .wt.carriers import GLS, OrthoFilter, DiscreteWavelet
 from .wt.factor import check_boundary_stability
-from .ops import dwt1d, filter_fb, lifting, pyramid2d, wpt as wpt_ops
+from .ops import (dwt1d, dwt3d, filter_fb, lifting, modwt as modwt_ops,
+                  modwt1d, pyramid2d, wpt as wpt_ops)
 from .ops.level2d import DTYPES
 
-__all__ = ["dwt", "idwt", "wpt", "iwpt"]
+__all__ = ["dwt", "idwt", "wpt", "iwpt", "modwt", "imodwt", "dwtc", "idwtc"]
 
 # transform dims = array rank, capped at 3 (higher ranks batch the leading
 # axes)
 _MAX_NDT = 3
 
 
-def _as_float(x, device=None):
+def _as_tensor(x, device=None):
+    """The device rule: a tensor stays on its device unless ``device`` is
+    given; anything else goes to ``device``, or to the CUDA card."""
     if isinstance(x, torch.Tensor):
-        if device is not None:
-            x = x.to(device)
-    else:
-        device = torch.device("cuda" if device is None else device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA card: a non-tensor input goes to the card unless "
-                "device is given (device='cpu' runs on the CPU)")
-        x = torch.as_tensor(x, device=device)
-    if x.is_complex():
-        raise NotImplementedError("complex input is not ported yet")
-    if not x.is_floating_point():
+        return x if device is None else x.to(device)
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA card: a non-tensor input goes to the card unless "
+            "device is given (device='cpu' runs on the CPU)")
+    return torch.as_tensor(x, device=device)
+
+
+def _as_float(x, device=None):
+    x = _as_tensor(x, device)
+    if not (x.is_floating_point() or x.is_complex()):
         x = x.to(torch.float64)
     return x
+
+
+def _parts(fn, x, *args, **kwargs):
+    """``fn`` of a complex ``x`` as two real transforms: exact, since every
+    transform here is linear with real coefficients."""
+    return torch.complex(fn(x.real, *args, **kwargs),
+                         fn(x.imag, *args, **kwargs))
 
 
 def _ndt(x, ndt):
@@ -95,6 +111,13 @@ def _transform(x, wt, L, ndt, fw):
         flat = x.reshape(-1, x.shape[-1]).contiguous()
         fn = dwt1d.dwt1 if fw else dwt1d.idwt1
         return fn(flat, wt, L).reshape(x.shape)
+    if ndt == 3 and _periodic(wt) and x.dtype in DTYPES:
+        fn = dwt3d.dwt3 if fw else dwt3d.idwt3
+        if x.ndim == 3:
+            return fn(x.contiguous(), wt, L)
+        vols = x.reshape((-1,) + tuple(x.shape[-3:]))
+        return torch.stack([fn(v.contiguous(), wt, L) for v in vols]
+                           ).reshape(x.shape)
     if isinstance(wt, OrthoFilter):
         h, g = filter_fb.filter_pair(wt)
         if ndt == 1:
@@ -118,9 +141,11 @@ def dwt(x, wt: DiscreteWavelet, L: int | None = None, *,
     ``wt`` — a carrier from ``wt.wavelet``.  ``L`` — the number of levels
     (default: the most the shape allows).  ``device`` — where to run (see
     the module docstring).  Returns the coefficients in the packed layout,
-    on that device (the input itself when ``L`` is 0).
+    on that device (the input itself when ``L`` is 0, unless complex).
     """
     x = _as_float(x, device)
+    if x.is_complex():
+        return _parts(dwt, x, wt, L, ndt=ndt)
     ndt = _ndt(x, ndt)
     if L is None:
         L = maxtransformlevels(tuple(x.shape[-ndt:]))
@@ -132,6 +157,8 @@ def idwt(y, wt: DiscreteWavelet, L: int | None = None, *,
          ndt: int | None = None, device=None):
     """Inverse of :func:`dwt`."""
     y = _as_float(y, device)
+    if y.is_complex():
+        return _parts(idwt, y, wt, L, ndt=ndt)
     ndt = _ndt(y, ndt)
     if L is None:
         L = maxtransformlevels(tuple(y.shape[-ndt:]))
@@ -164,6 +191,8 @@ def _full_tree(n: int, L: int) -> np.ndarray:
 
 def _wpt_common(x, wt, tree, L, fw, device):
     x = _as_float(x, device)
+    if x.is_complex():
+        return _parts(_wpt_common, x, wt, tree, L, fw, None)
     n = x.shape[-1]
     if tree is None:
         tree = _full_tree(n, maxtransformlevels(n) if L is None else int(L))
@@ -191,3 +220,50 @@ def iwpt(y, wt: DiscreteWavelet, tree=None, L: int | None = None, *,
     """Inverse of :func:`wpt` (also accepts an integer as ``L``)."""
     tree, L = _tree_or_levels(tree, L)
     return _wpt_common(y, wt, tree, L, False, device)
+
+
+# --- MODWT ------------------------------------------------------------------
+
+def modwt(x, wt: OrthoFilter, L: int | None = None, *, device=None):
+    """Maximal-overlap DWT along the last axis -> ``(..., N, L+1)``: detail
+    level j in column j-1, the scaling band in column L.  Any length N
+    works; ``L`` defaults to ``maxmodwttransformlevels(N)``.  Leading axes
+    flatten onto the kernels' batch.  ``device`` as for :func:`dwt`."""
+    x = _as_float(x, device)
+    if x.is_complex():
+        return _parts(modwt, x, wt, L)
+    N = x.shape[-1]
+    L = maxmodwttransformlevels(N) if L is None else int(L)
+    modwt_ops.check_levels(N, L)
+    modwt_ops.modwt_filter_pair(wt)          # refuses a lifting scheme
+    if x.dtype not in DTYPES:
+        return modwt_ops.modwt(x, wt, L)
+    flat = x.reshape(-1, N).contiguous()
+    return modwt1d.modwt(flat, wt, L).reshape(*x.shape, L + 1)
+
+
+def imodwt(xw, wt: OrthoFilter, *, device=None):
+    """Inverse MODWT of an ``(..., N, L+1)`` coefficient array."""
+    xw = _as_float(xw, device)
+    if xw.is_complex():
+        return _parts(imodwt, xw, wt)
+    modwt_ops.modwt_filter_pair(wt)          # refuses a lifting scheme
+    if xw.dtype not in DTYPES:
+        return modwt_ops.imodwt(xw, wt)
+    flat = xw.reshape((-1,) + tuple(xw.shape[-2:]))
+    return modwt1d.imodwt(flat, wt).reshape(xw.shape[:-1])
+
+
+# --- column-wise transform over the trailing channel axis -------------------
+
+def dwtc(x, wt: DiscreteWavelet, L: int | None = None, *, device=None):
+    """Per-channel 2-D DWT of an ``(m, n, c)`` array (channels last): the
+    channels ride the 2-D pyramid's batch axis."""
+    x = _as_float(x, device)
+    return torch.movedim(dwt(torch.movedim(x, -1, 0), wt, L, ndt=2), 0, -1)
+
+
+def idwtc(y, wt: DiscreteWavelet, L: int | None = None, *, device=None):
+    """Inverse of :func:`dwtc`."""
+    y = _as_float(y, device)
+    return torch.movedim(idwt(torch.movedim(y, -1, 0), wt, L, ndt=2), 0, -1)
