@@ -27,6 +27,11 @@ exits non-zero:
                   way for three filter wavelets, on (B, N) rows with
                   N = 5 to 8192, N = 1000, strided columns and a tap reach
                   above N.
+  2e. kernelshalo -- kernels I and J in halo mode: with halos equal to the
+                  wrapped rows they must equal the periodic kernels bit for
+                  bit; with random halos (taller than the reach, strided)
+                  they are held against their plain versions; R = 2H,
+                  narrow C and strided views, four wavelets, three dtypes.
   3. main      -- dwt/idwt of the 16384^2 float32 image, cdf97 lifting, 8
                   levels, through the public entry points; the launch counts
                   show the route, the round trip is checked, and smaller
@@ -42,6 +47,18 @@ exits non-zero:
                   at 128^3.
   3d. mainmodwt -- modwt/imodwt of (512, 8192) float32 rows, db4, 6 levels
                   (K and M, one launch per level), checked the same way.
+  3e. mainsharded -- parallel.dwt2/idwt2 of the 16384^2 float32 image,
+                  cdf97 lifting, 8 levels, over Mesh([cuda:0] * 4): the
+                  launch table (E and I in halo mode per shard per level,
+                  J in halo mode and F back), the fallback levels and the
+                  copies; held against the single-card dwt, by its f32
+                  round trip and by an f64 round trip at 2048^2.  Then
+                  parallel.denoise (cdf97, L6) against the single-card
+                  denoise, f32 and f64, on a signal plus noise.
+  3f. mainthreshold -- the single-card denoise(cdf97, L=6, TI=True,
+                  nspin=(4, 4)) of a 16384^2 signal plus noise and the
+                  bestbasistree of the 2^20 signal (db4), each held against
+                  a float64 run on the card.
   4. times     -- CUDA-event times (median of three chained measurements) of
                   the 2-D main path in f32 and bf16, the same-run copy floor
                   and sol_fraction, the 2048^2 forward, and each 2-D kernel
@@ -53,12 +70,19 @@ exits non-zero:
                   bf16), and kernels I, J, K and M; for K also the
                   contiguous store and the permuted copy that the column
                   store replaces.
-  5. trace     -- torch.profiler over five calls of each path: the device
-                  time of each launch of one call, the device's busy time,
-                  and its idle share against the calls' time with the
-                  profiler off.
+  4d. timessharded -- the sharded forward and inverse on 4 shards and on 1,
+                  the TI denoise and the best-basis search (bench.py's
+                  inputs), with host times; I and J in halo mode at one
+                  shard's level-1 shape (4096, 16384) beside their plain
+                  versions and a conv2d over [above; x; below] (the cat
+                  made beforehand, not timed).
+  5. trace     -- torch.profiler over five calls of each path (the sharded
+                  forward included): the device time of each launch of one
+                  call, the device's busy time, and its idle share against
+                  the calls' time with the profiler off.
 
-Then the per-kernel JSON line, and last {"ok": true, "device": {...}}.
+Then nvidia-smi's line again, the per-kernel JSON line, and last
+{"ok": true, "device": {...}}.
 """
 
 import json
@@ -71,12 +95,15 @@ import torch
 import torch.nn.functional as F
 
 import wavelets_tpu_torch as w
+from wavelets_tpu_torch import parallel
 from wavelets_tpu_torch import profiling as P
+from wavelets_tpu_torch.parallel import mesh as pmesh, sharded as psharded
 from wavelets_tpu_torch.ops import (axis0, bands, build, dwt1d, dwt3d,
                                     level1d, level2d, lifting, modwt1d,
                                     pyramid2d, tail1d, tail2d)
 from wavelets_tpu_torch.ops import modwt as modwt_ops
 from wavelets_tpu_torch.ops import wpt as wpt_ops
+from wavelets_tpu_torch.threshold import entropy as th_entropy
 from wavelets_tpu_torch.ops.bands import tap_count as taps
 
 WAVELETS = (("cdf97", "lifting"), ("haar", "lifting"), ("db4", "filter"))
@@ -121,6 +148,13 @@ PEAK_FLOPS_F32 = 67e12
 # version (cuDNN sums in another order)
 LIBRARY_TOL = 1e-4
 MODULES = (level2d, tail2d, level1d, tail1d, axis0, modwt1d)
+# the halo mode: wavelets, and (B, R, C) shapes with R = 2H as "2H"
+WAVELETS_HALO = WAVELETS + (("sym5", "filter"),)
+SHAPES_HALO = ((1, "2H", 1), (3, "2H", 5), (2, 64, 3), (4, 96, 160),
+               (1, 256, 512))
+SHARDS = 4
+# denoise: levels, spin grid; the sharded path's denoise levels
+DENOISE_LEVELS, NSPIN = 6, (4, 4)
 
 
 def emit(obj):
@@ -259,21 +293,42 @@ def library_fw2d(x, wt):
     return lambda: F.conv2d(xp, wgt, stride=2)
 
 
+def _polyphase(wt):
+    """The synthesis bands as polyphase filters: ``w[p, ch, k]`` is the tap
+    of output parity p on channel ch (0 scaling, 1 detail) at offset
+    ``smin + k``; returns ``(w, smin)``."""
+    bands_ = bands.synthesis_bands(wt)
+    smin = min(int(dl.min()) for dl, _ in bands_)
+    w = np.zeros((2, 2, max(int(dl.max()) for dl, _ in bands_) - smin + 1))
+    for p in (0, 1):
+        for ch in (0, 1):
+            dl, c = bands_[2 * p + ch]
+            np.add.at(w[p, ch], dl - smin, c)
+    return w, smin
+
+
 def library_inv2d(quads, wt):
-    """conv_transpose2d, stride 2, on the four quadrants ``(1, mh, nh)``
-    stacked as channels and padded periodically: output ``(1, 2mh, 2nh)``."""
-    h, jmin = synthesis_filters(wt)
+    """The polyphase form of the inverse 2-D level, one conv2d: the four
+    quadrants ``(1, mh, nh)`` as input channels, wrapped beforehand; output
+    channel 2p + q holds the samples (2i + p, 2j + q), ``(1, 4, mh, nh)``
+    (interleave2d merges them).  cuDNN's conv_transpose2d took 1075-1572 ms
+    for kernel B's level, so the transposed form is no yardstick."""
+    w, smin = _polyphase(wt)
+    K = w.shape[2]
     _, mh, nh = quads[0].shape
-    ar, lr, t0 = _transposed_pad(h, jmin, mh)
-    ac, lc, _ = _transposed_pad(h, jmin, nh)
-    ri = _wrap_index(lr, ar, mh, quads[0].device)
-    ci = _wrap_index(lc, ac, nh, quads[0].device)
+    dev = quads[0].device
+    ri = _wrap_index(mh + K - 1, smin, mh, dev)
+    ci = _wrap_index(nh + K - 1, smin, nh, dev)
     inp = torch.stack([q[0][ri][:, ci] for q in quads])[None].contiguous()
-    wgt = torch.from_numpy(np.stack([np.outer(h[r], h[c])
-                                     for r, c in _QUADS]))[:, None]
-    wgt = wgt.to(quads[0])
-    return lambda: F.conv_transpose2d(inp, wgt, stride=2)[
-        :, 0, t0: t0 + 2 * mh, t0: t0 + 2 * nh]
+    wgt = torch.from_numpy(np.einsum("prk,qcl->pqrckl", w, w).reshape(
+        4, 4, K, K)).to(quads[0])
+    return lambda: F.conv2d(inp, wgt)
+
+
+def interleave2d(o):
+    """library_inv2d's ``(1, 4, mh, nh)`` as the merged ``(2mh, 2nh)``."""
+    _, _, mh, nh = o.shape
+    return o[0].view(2, 2, mh, nh).permute(2, 0, 3, 1).reshape(2 * mh, 2 * nh)
 
 
 def quads_of(y):
@@ -310,19 +365,13 @@ def library_axis0_inv(a, d, wt):
     channel p holds the rows 2k + p, ``(1, 2, Rh, m n)``.  (cuDNN's
     conv_transpose2d took 1222 ms for kernel B's level, so the transposed
     form is no yardstick.)"""
-    bands_ = bands.synthesis_bands(wt)
-    smin = min(int(dl.min()) for dl, _ in bands_)
-    K = max(int(dl.max()) for dl, _ in bands_) - smin + 1
-    wgt = np.zeros((2, 2, K, 1))
-    for p in (0, 1):
-        for ch in (0, 1):
-            dl, c = bands_[2 * p + ch]
-            np.add.at(wgt[p, ch, :, 0], dl - smin, c)
+    w, smin = _polyphase(wt)
+    K = w.shape[2]
     Rh = a.shape[0]
     idx = _wrap_index(Rh + K - 1, smin, Rh, a.device)
     inp = torch.stack([a.reshape(Rh, -1)[idx], d.reshape(Rh, -1)[idx]])
     inp = inp[None].contiguous()
-    wgt = torch.from_numpy(wgt).to(a)
+    wgt = torch.from_numpy(w[..., None]).to(a)
     return lambda: F.conv2d(inp, wgt)
 
 
@@ -330,6 +379,34 @@ def interleave_rows(o, shape):
     """The polyphase conv2d's ``(1, 2, Rh, m n)`` as the merged
     ``shape = (2Rh, m, n)``."""
     return torch.stack([o[0, 0], o[0, 1]], 1).reshape(shape)
+
+
+def library_halo_fw(x, above, below, wt):
+    """conv2d with a (taps, 1) kernel at stride (2, 1) over ``[above; x;
+    below]`` of ``x (1, R, C)``, the cat made beforehand (not timed):
+    output ``(1, 2, R/2, C)`` = (a, d)."""
+    h, dmin = analysis_filters(wt)
+    ha, R, K = above.shape[1], x.shape[1], h.shape[1]
+    ext = torch.cat([above[0], x[0], below[0]])
+    ext = ext[ha + dmin: ha + dmin + R - 2 + K][None, None].contiguous()
+    wgt = torch.from_numpy(h)[:, None, :, None].to(x)
+    return lambda: F.conv2d(ext, wgt, stride=(2, 1))
+
+
+def library_halo_inv(a, d, halos, wt):
+    """The polyphase conv2d of library_axis0_inv over ``[above; plane;
+    below]`` of the two ``(1, Rh, C)`` planes, the cats made beforehand:
+    output ``(1, 2, Rh, C)``, channel p the rows 2k + p."""
+    w, smin = _polyphase(wt)
+    K = w.shape[2]
+    ia, Rh = halos[0].shape[1], a.shape[1]
+    lo = ia + smin
+    planes = [torch.cat([above[0], v[0], below[0]])[lo: lo + Rh + K - 1]
+              for v, above, below in ((a, halos[0], halos[1]),
+                                      (d, halos[2], halos[3]))]
+    inp = torch.stack(planes)[None].contiguous()
+    wgt = torch.from_numpy(w[..., None]).to(a)
+    return lambda: F.conv2d(inp, wgt)
 
 
 def _modwt_taps(wt):
@@ -379,6 +456,7 @@ def phase_device():
     # library yardsticks in full float32, as the kernels compute
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    return smi
 
 
 def phase_build():
@@ -573,6 +651,83 @@ def phase_kernelsmodwt(dev):
           "worst_rel_err": worst})
 
 
+def halo_height(wt):
+    """H: the rows a level reads beyond the view, in either direction and
+    for either pass (the inverse's on the half rows)."""
+    fa, fb = axis0.halo_reach(wt, False)
+    ia, ib = axis0.halo_reach(wt, True)
+    return max(fa, fb, 2 * ia, 2 * ib, 1)
+
+
+def strided(rng, shape, dt, dev):
+    """A random ``shape`` view with gaps between its rows and items."""
+    B, R, C = shape
+    base = torch.from_numpy(rng.standard_normal((B, R + 3, C + 7))).to(
+        dev).to(dt)
+    return base[:, 1:R + 1, 2:C + 2]
+
+
+def phase_kernelshalo(dev, shapes=SHAPES_HALO):
+    rng = np.random.default_rng(5)
+    worst = {}
+    cases = 0
+    for (wname, kind) in WAVELETS_HALO:
+        wt = wavelet(wname, kind)
+        fa, fb = axis0.halo_reach(wt, False)
+        ia, ib = axis0.halo_reach(wt, True)
+        H = halo_height(wt)
+        for dt, tol in TOL.items():
+            for B, R, C in shapes:
+                R = 2 * H if R == "2H" else R
+                Rh = R // 2
+                x = strided(rng, (B, R, C), dt, dev)
+                errs = {}
+                # halos equal to the wrapped rows: bit for bit the periodic
+                # kernels, forward and inverse
+                a, d = launched("axis0_fw", lambda: axis0.axis0_fw(x, wt))
+                ah, dh = launched("axis0_fw_halo", lambda: axis0.axis0_fw(
+                    x, wt, above=x[:, R - fa:], below=x[:, :fb]))
+                require(torch.equal(a, ah) and torch.equal(d, dh),
+                        f"halo fw with wrapped halos equals the periodic "
+                        f"kernel: {wname} {(B, R, C)} {dt}")
+                xi = launched("axis0_inv", lambda: axis0.axis0_inv(a, d, wt))
+                xh = launched("axis0_inv_halo", lambda: axis0.axis0_inv(
+                    a, d, wt, halos=(a[:, Rh - ia:], a[:, :ib],
+                                     d[:, Rh - ia:], d[:, :ib])))
+                require(torch.equal(xi, xh),
+                        f"halo inv with wrapped halos equals the periodic "
+                        f"kernel: {wname} {(B, R, C)} {dt}")
+                # random halos, taller than the reach, into the 3-D
+                # driver's permuted output layout
+                above = strided(rng, (B, fa + 2, C), dt, dev)
+                below = strided(rng, (B, fb + 1, C), dt, dev)
+                po = torch.full((Rh, B, 2 * C + 1), float("nan"), dtype=dt,
+                                device=dev)
+                pa = po[:, :, :C].permute(1, 0, 2)
+                pd = po[:, :, C + 1:].permute(1, 0, 2)
+                ra, rd = axis0.axis0_fw_plain(x, wt, above=above,
+                                              below=below)
+                launched("axis0_fw_halo", lambda: axis0.axis0_fw(
+                    x, wt, pa, pd, above=above, below=below))
+                errs["axis0_fw_halo"] = max(rel_err(pa, ra), rel_err(pd, rd))
+                halos = (strided(rng, (B, ia + 1, C), dt, dev),
+                         strided(rng, (B, ib + 2, C), dt, dev),
+                         strided(rng, (B, ia + 1, C), dt, dev),
+                         strided(rng, (B, ib, C), dt, dev))
+                ri = axis0.axis0_inv_plain(pa, pd, wt, halos=halos)
+                gi = launched("axis0_inv_halo", lambda: axis0.axis0_inv(
+                    pa, pd, wt, halos=halos))
+                errs["axis0_inv_halo"] = rel_err(gi, ri)
+                check_all("kernelshalo", errs, (wname, B, R, C), dt, tol,
+                          worst)
+                cases += 1
+    emit({"phase": "kernelshalo", "cases": cases,
+          "shapes": [list(r) for r in shapes],
+          "wrapped_halos_bit_equal": True,
+          "tolerance": {str(k)[6:]: v for k, v in TOL.items()},
+          "worst_rel_err": worst})
+
+
 def phase_main(x):
     wt = w.wavelet(w.wt.cdf97, "lifting")
     k_fw = pyramid2d.kernel_levels(SIZE, SIZE, LEVELS, wt, x.dtype, False)
@@ -753,6 +908,173 @@ def phase_mainmodwt(xm):
     return launches
 
 
+def rel_l2(got, ref):
+    got, ref = got.double(), ref.double()
+    return ((got - ref).norm() / ref.norm()).item()
+
+
+def signal_image(x):
+    """A denoising input of ``x``'s size: the HeaviSine test function's
+    outer sum plus 0.1 x (x is standard normal noise)."""
+    h = torch.from_numpy(w.testfunction(x.shape[0], "HeaviSine")).to(x)
+    return h[:, None] + h[None, :] + 0.1 * x
+
+
+def reset_parallel():
+    for d in (psharded.STATS, pmesh.COPIES):
+        for k in d:
+            d[k] = 0
+
+
+def level_table(fn, x, L):
+    """Launches per level: the counts of ``fn(x, l)`` for l = 1 .. L, each
+    less the one before."""
+    table, before = [], {}
+    for level in range(1, L + 1):
+        reset_counts()
+        fn(x, level)
+        torch.cuda.synchronize()
+        now = {k: v for k, v in counts()[0].items() if v}
+        table.append({k: v - before.get(k, 0) for k, v in now.items()
+                      if v - before.get(k, 0)})
+        before = now
+    return table
+
+
+def phase_mainsharded(x, xsig):
+    dev = x.device
+    wt = w.wavelet(w.wt.cdf97, "lifting")
+    mesh = parallel.Mesh([dev] * SHARDS, ("x",))
+    reset_counts()
+    reset_parallel()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ys = parallel.dwt2(x, wt, LEVELS, mesh)
+    xr = parallel.idwt2(ys, wt, LEVELS, mesh)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = counts()
+    stats, copies = dict(psharded.STATS), dict(pmesh.COPIES)
+    expected = {k: 0 for k in launches}
+    expected.update({k: SHARDS * LEVELS for k in (
+        "level1d_fw", "axis0_fw_halo", "axis0_inv_halo", "level1d_inv")})
+    require(launches == expected, f"sharded route {launches}")
+    require(not any(plain.values()), f"sharded: no plain version ran {plain}")
+    require(stats == {"sharded_levels": 2 * LEVELS, "fallback_levels": 0,
+                      "clones": 1}, f"sharded levels {stats}")
+    y = ys.gather(dev)
+    require(y.shape == x.shape and y.dtype == x.dtype, "sharded shape")
+    e32 = rel_err(y, w.dwt(x, wt, LEVELS))
+    require(e32 <= 1e-5, f"sharded vs single-card dwt {e32:.3e} <= 1e-5")
+    rt = (xr.gather(dev) - x).abs().max().item()
+    require(rt <= 1e-3, f"sharded f32 round trip {rt:.3e} <= 1e-3")
+    del y, ys, xr
+    x2 = x[:2048, :2048].double()
+    rt64 = (parallel.idwt2(parallel.dwt2(x2, wt, LEVELS, mesh), wt, LEVELS,
+                           mesh).gather(dev) - x2).abs().max().item()
+    require(rt64 <= 1e-12, f"sharded f64 round trip {rt64:.3e} <= 1e-12")
+    # rank-1 shards (I/J with B = C = 1): a 2^20 signal, 8 levels
+    x1 = x.reshape(-1)[: 1 << 20]
+    y1 = parallel.dwt1(x1, wt, LEVELS, mesh)
+    e1 = rel_err(y1.gather(dev), w.dwt(x1, wt, LEVELS))
+    require(e1 <= 1e-5, f"sharded 1-D vs single-card dwt {e1:.3e} <= 1e-5")
+    rt1 = (parallel.idwt1(y1, wt, LEVELS, mesh).gather(dev) - x1).abs() \
+        .max().item()
+    require(rt1 <= 1e-3, f"sharded 1-D f32 round trip {rt1:.3e} <= 1e-3")
+    del y1
+    fw_table = level_table(lambda v, l: parallel.dwt2(v, wt, l, mesh), x,
+                           LEVELS)
+    inv_table = level_table(lambda v, l: parallel.idwt2(
+        v, wt, l, mesh), x, LEVELS)
+    # the distributed denoise against the single card's, on one input
+    dn = {}
+    for tag, xt in (("f32", xsig), ("f64", xsig.double())):
+        got = parallel.denoise(xt, wt, L=DENOISE_LEVELS, mesh=mesh).gather(
+            dev)
+        ref = w.denoise(xt, wt, L=DENOISE_LEVELS)
+        require(bool(torch.isfinite(got).all()), f"denoise {tag} finite")
+        dn[tag] = rel_l2(got, ref) if tag == "f32" else rel_err(got, ref)
+        del got, ref
+    require(dn["f32"] <= 1e-4, f"sharded denoise f32 rel l2 {dn['f32']:.3e}")
+    require(dn["f64"] <= 1e-10, f"sharded denoise f64 {dn['f64']:.3e}")
+    emit({"phase": "mainsharded", "shape": [SIZE, SIZE], "levels": LEVELS,
+          "shards": SHARDS, "mesh": str(mesh), "dtype": "float32",
+          "launches": {k: v for k, v in launches.items() if v},
+          "launches_per_level_fw": fw_table,
+          "launches_per_level_inv": inv_table,
+          "levels_run": stats, "copies": copies,
+          "wall_s_first_call_pair": wall,
+          "vs_single_card_rel_err": e32, "roundtrip_max_abs_err": rt,
+          "f64_roundtrip_2048_max_abs_err": rt64,
+          "dwt1_2e20_vs_single_card_rel_err": e1,
+          "dwt1_2e20_roundtrip_max_abs_err": rt1,
+          "denoise_L6_vs_single_card_f32_rel_l2": dn["f32"],
+          "denoise_L6_vs_single_card_f64_rel_err": dn["f64"]})
+    return launches
+
+
+def basis_cost(tree, y, wt):
+    """The Shannon entropy of the basis that ``tree`` selects for ``y``:
+    the before-entropies of its leaves, in y's dtype on y's device."""
+    n = y.numel()
+    et = w.ShannonEntropy()
+    nrm = torch.linalg.norm(y)
+    x, cost = y, 0.0
+    reached = np.ones(1, dtype=bool)
+    D = (len(tree) + 1).bit_length() - 1
+    for d in range(D):
+        segs = x.reshape(2 ** d, -1)
+        e = th_entropy._coef_terms(segs, et, nrm).sum(-1).cpu().numpy()
+        split = tree[2 ** d - 1: 2 ** (d + 1) - 1]
+        cost += e[reached & ~split].sum()
+        reached = np.repeat(reached & split, 2)
+        x = wpt_ops.packet_level(segs, wt, True).reshape(n)
+    # a split bottom node costs its two children's entropy
+    terms = th_entropy._coef_terms(x.reshape(2 ** (D - 1), -1), et,
+                                   nrm).sum(-1)
+    return cost + terms.cpu().numpy()[reached[::2]].sum()
+
+
+def phase_mainthreshold(xsig, x1):
+    cdf = w.wavelet(w.wt.cdf97, "lifting")
+    db4 = wavelet("db4", "filter")
+    reset_counts()
+    dn = w.denoise(xsig, cdf, L=DENOISE_LEVELS, TI=True, nspin=NSPIN)
+    torch.cuda.synchronize()
+    launches_ti, plain = counts()
+    require(not any(plain.values()), "TI denoise: no plain version ran")
+    require(dn.shape == xsig.shape and bool(torch.isfinite(dn).all()),
+            "TI denoise shape, finite")
+    e_ti = rel_l2(dn, w.denoise(xsig.double(), cdf, L=DENOISE_LEVELS,
+                                TI=True, nspin=NSPIN))
+    require(e_ti <= 1e-4, f"TI denoise f32 vs f64 rel l2 {e_ti:.3e}")
+    del dn
+    reset_counts()
+    tree = w.bestbasistree(x1, db4)
+    launches_bb, plain = counts()
+    require(not any(plain.values()), "bestbasistree: no plain version ran")
+    tree64 = w.bestbasistree(x1.double(), db4)
+    require(w.isvalidtree(x1.numel(), tree), "bestbasistree: a valid tree")
+    x64 = x1.double()
+    cost, cost64 = basis_cost(tree, x64, db4), basis_cost(tree64, x64, db4)
+    e_bb = abs(cost - cost64) / abs(cost64)
+    require(e_bb <= 1e-6, f"best basis f32 vs f64 cost {e_bb:.3e}")
+    emit({"phase": "mainthreshold",
+          "ti_denoise": {"shape": list(xsig.shape), "levels": DENOISE_LEVELS,
+                         "nspin": list(NSPIN), "dtype": "float32",
+                         "launches": {k: v for k, v in launches_ti.items()
+                                      if v},
+                         "vs_f64_rel_l2": e_ti},
+          "bestbasistree": {"n": x1.numel(), "wavelet": "db4",
+                            "launches": {k: v for k, v in launches_bb.items()
+                                         if v},
+                            "nodes_equal_to_f64": float(np.mean(
+                                tree == tree64)),
+                            "basis_cost_f32_tree": cost,
+                            "basis_cost_f64_tree": cost64,
+                            "cost_rel_diff": e_bb}})
+
+
 def kernel_row(name, kern, plain, outs, tol, library=None, lib_ref=None):
     """Time a kernel beside its plain version (and a library call), and
     check the three agree; ``outs`` are the buffers the kernel writes."""
@@ -835,7 +1157,8 @@ def phase_times(dev, x):
     rows["level_inv"] = kernel_row(
         "level_inv", lambda: level2d.level_inv(*planes, wt, out=xr),
         lambda: level2d.level_inv_plain(*planes, wt, out=xr), (xr,),
-        TOL[x.dtype], library_inv2d(planes, wt), lambda o: [o])
+        TOL[x.dtype], library_inv2d(planes, wt),
+        lambda o: [interleave2d(o)])
     # one tail level is one periodic 2-D level: the same library calls
     rows["tail_fw"] = kernel_row(
         "tail_fw", lambda: tail2d.tail_fw(small, wt, 1, out=ys),
@@ -844,7 +1167,8 @@ def phase_times(dev, x):
     rows["tail_inv"] = kernel_row(
         "tail_inv", lambda: tail2d.tail_inv(ys, wt, 1, out=xs),
         lambda: tail2d.tail_inv_plain(ys, wt, 1, out=xs), (xs,),
-        TOL[x.dtype], library_inv2d(quads_of(ys), wt), lambda o: [o])
+        TOL[x.dtype], library_inv2d(quads_of(ys), wt),
+        lambda o: [interleave2d(o)])
     # bounds: each input read once, each output written once; operations
     # of the separable passes (2 per tap)
     big, sm = 2 * x.numel() * 4, 2 * small.numel() * 4
@@ -1014,6 +1338,84 @@ def phase_timesmodwt(xm):
     return rows
 
 
+def phase_timessharded(x, x1, x24):
+    dev = x.device
+    wt = w.wavelet(w.wt.cdf97, "lifting")
+    db4 = wavelet("db4", "filter")
+    out = {"phase": "timessharded", "shape": [SIZE, SIZE], "levels": LEVELS}
+    for tag, nd in (("shards_4", SHARDS), ("shards_1", 1)):
+        mesh = parallel.Mesh([dev] * nd, ("x",))
+        fw = lambda v: parallel.dwt2(v, wt, LEVELS, mesh)      # noqa: E731
+        ys = fw(x)
+        inv = lambda _: parallel.idwt2(ys, wt, LEVELS, mesh)   # noqa: E731
+        out[tag] = {"fw_ms": P.med3(fw, x, 5) * 1e3,
+                    "inv_ms": P.med3(inv, x, 5) * 1e3,
+                    "fw_host_ms": P.enqueue_time(fw, x, 5) * 1e3,
+                    "inv_host_ms": P.enqueue_time(inv, x, 5) * 1e3}
+        del ys
+    out["single_card_fw_ms"] = P.med3(lambda v: w.dwt(v, wt, LEVELS), x,
+                                      10) * 1e3
+    mesh4 = parallel.Mesh([dev] * SHARDS, ("x",))
+    # rank-1 shards: the 2^24 signal, 8 levels (I/J with B = C = 1)
+    fw1 = lambda v: parallel.dwt1(v, wt, LEVELS, mesh4)        # noqa: E731
+    y1 = fw1(x24)
+    out["dwt1_2e24_4shards"] = {
+        "fw_ms": P.med3(fw1, x24, 3) * 1e3,
+        "inv_ms": P.med3(lambda _: parallel.idwt1(y1, wt, LEVELS, mesh4),
+                         x24, 3) * 1e3,
+        "fw_host_ms": P.enqueue_time(fw1, x24, 3) * 1e3,
+        "single_card_fw_ms": P.med3(lambda v: w.dwt(v, wt, LEVELS, ndt=1),
+                                    x24, 10) * 1e3}
+    del y1
+    out["parallel_denoise_L6_4shards_ms"] = P.time_fn(
+        lambda v: parallel.denoise(v, wt, L=DENOISE_LEVELS, mesh=mesh4), x,
+        3, chain=False) * 1e3
+    ti = lambda v: w.denoise(v, wt, L=DENOISE_LEVELS, TI=True,  # noqa: E731
+                             nspin=NSPIN)
+    out["ti_denoise_16k_L6_16spin_ms"] = P.time_fn(ti, x, 2,
+                                                   chain=False) * 1e3
+    out["ti_denoise_host_ms"] = P.enqueue_time(ti, x, 2) * 1e3
+    bb = lambda v: w.bestbasistree(v, db4)                    # noqa: E731
+    out["bestbasis_2e20_ms"] = P.time_fn(bb, x1, 3, chain=False) * 1e3
+    torch.cuda.empty_cache()
+
+    # I and J in halo mode at one shard's level-1 shape: shard 0 of the
+    # 4-shard mesh, its halos the ring neighbours' rows
+    fa, fb = axis0.halo_reach(wt, False)
+    ia, ib = axis0.halo_reach(wt, True)
+    rows_ = SIZE // SHARDS
+    xs = x[None, :rows_]
+    above, below = x[None, SIZE - fa:], x[None, rows_: rows_ + fb]
+    a = torch.empty((1, rows_ // 2, SIZE), dtype=x.dtype, device=dev)
+    d = torch.empty_like(a)
+    xr = torch.empty_like(xs)
+    halos = (a[:, rows_ // 2 - ia:], a[:, :ib], d[:, rows_ // 2 - ia:],
+             d[:, :ib])
+    rows = {}
+    rows["axis0_fw_halo"] = kernel_row(
+        "axis0_fw_halo", lambda: axis0.axis0_fw(xs, wt, a, d, above=above,
+                                                below=below),
+        lambda: axis0.axis0_fw_plain(xs, wt, a, d, above=above, below=below),
+        (a, d), TOL[x.dtype], library_halo_fw(xs, above, below, wt),
+        lambda o: [o[:, 0], o[:, 1]])
+    rows["axis0_inv_halo"] = kernel_row(
+        "axis0_inv_halo", lambda: axis0.axis0_inv(a, d, wt, out=xr,
+                                                  halos=halos),
+        lambda: axis0.axis0_inv_plain(a, d, wt, out=xr, halos=halos), (xr,),
+        TOL[x.dtype], library_halo_inv(a, d, halos, wt),
+        lambda o: [interleave_rows(o, xs.shape[1:])])
+    copy_s, bw = P.copy_bandwidth(xs, 10)
+    out["level1_shard_copy_ms"] = copy_s * 1e3
+    for name, inverse, nhalo in (("axis0_fw_halo", False, fa + fb),
+                                 ("axis0_inv_halo", True, 2 * (ia + ib))):
+        nbytes = (2 * rows_ + nhalo) * SIZE * x.element_size()
+        rows[name]["bound_ms"], rows[name]["bound_by"] = bound(
+            nbytes, taps(wt, inverse) * xs.numel())
+        rows[name]["copy_bound_ms"] = nbytes / bw * 1e3
+    emit(out)
+    return rows
+
+
 def trace(fn, x, calls=5):
     """torch.profiler over ``calls`` calls of ``fn(x)``: the device time of
     each of this repo's kernel launches in the first call, and the device's
@@ -1069,21 +1471,27 @@ def phase_trace(x, xs):
     runs.append(("modwt_512x8192_db4_L6", xs[MODWT_SHAPE],
                  (lambda v: w.modwt(v, db4, MODWT_LEVELS),
                   lambda v: w.imodwt(v, db4))))
+    mesh = parallel.Mesh([x.device] * SHARDS, ("x",))
+    runs.append(("sharded_2d_16384_cdf97_L8_4shards", x,
+                 (lambda v: parallel.dwt2(v, cdf, LEVELS, mesh), None)))
     for name, xt, (fw, inv) in runs:
-        yt = fw(xt)
-        emit({"phase": "trace", "path": name, "fw": trace(fw, xt),
-              "inv": trace(inv, yt)})
-        del yt
+        rec = {"phase": "trace", "path": name, "fw": trace(fw, xt)}
+        if inv is not None:
+            yt = fw(xt)
+            rec["inv"] = trace(inv, yt)
+            del yt
+        emit(rec)
 
 
 def main():
-    phase_device()
+    smi = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
     phase_kernels(dev)
     phase_kernels1d(dev)
     phase_kernels3d(dev)
     phase_kernelsmodwt(dev)
+    phase_kernelshalo(dev)
     x = torch.from_numpy(np.random.default_rng(0).standard_normal(
         (SIZE, SIZE)).astype(np.float32)).to(dev)
     # each kernel's launches on its own main path
@@ -1092,9 +1500,16 @@ def main():
     launches.update({k: v for k, v in phase_main1d(xs).items()
                      if k.endswith(("1d_fw", "1d_inv"))})
     launches.update({k: v for k, v in phase_main3d(xs[(SIZE3D,) * 3]).items()
-                     if k.startswith("axis0")})
+                     if k in ("axis0_fw", "axis0_inv")})
     launches.update({k: v for k, v in phase_mainmodwt(xs[MODWT_SHAPE]).items()
                      if k.startswith("modwt")})
+    xsig = signal_image(x)
+    launches.update({k: v for k, v in phase_mainsharded(x, xsig).items()
+                     if k.endswith("_halo")})
+    torch.cuda.empty_cache()
+    phase_mainthreshold(xsig, xs[(1 << 20,)])
+    del xsig
+    torch.cuda.empty_cache()
     require(all(v > 0 for v in launches.values()),
             f"every kernel launched on its main path: {launches}")
     rows = phase_times(dev, x)
@@ -1104,13 +1519,16 @@ def main():
     rows.update(phase_times3d(xs[(SIZE3D,) * 3]))
     rows.update(phase_timesmodwt(xs[MODWT_SHAPE]))
     torch.cuda.empty_cache()
+    rows.update(phase_timessharded(x, xs[(1 << 20,)], xs[(1 << 24,)]))
+    torch.cuda.empty_cache()
     phase_trace(x, xs)
     src = {"level_fw": "level2d.cu", "level_inv": "level2d.cu",
            "tail_fw": "tail2d.cu", "tail_inv": "tail2d.cu",
            "level1d_fw": "level1d.cu", "level1d_inv": "level1d.cu",
            "tail1d_fw": "tail1d.cu", "tail1d_inv": "tail1d.cu",
            "axis0_fw": "axis0.cu", "axis0_inv": "axis0.cu",
-           "modwt_fw": "modwt1d.cu", "modwt_inv": "modwt1d.cu"}
+           "modwt_fw": "modwt1d.cu", "modwt_inv": "modwt1d.cu",
+           "axis0_fw_halo": "axis0.cu", "axis0_inv_halo": "axis0.cu"}
     replaces = {"level_fw": "wavelets_tpu/ops/pallas/mxu2d.py:1610",
                 "level_inv": "wavelets_tpu/ops/pallas/mxu2d.py:1236",
                 "tail_fw": "wavelets_tpu/ops/pallas/tail2d.py:52",
@@ -1122,7 +1540,11 @@ def main():
                 "axis0_fw": "wavelets_tpu/ops/pallas/axis0.py:173",
                 "axis0_inv": "wavelets_tpu/ops/pallas/axis0.py:214",
                 "modwt_fw": "wavelets_tpu/ops/pallas/modwt1d.py:85",
-                "modwt_inv": "wavelets_tpu/ops/pallas/modwt1d.py:93"}
+                "modwt_inv": "wavelets_tpu/ops/pallas/modwt1d.py:93",
+                "axis0_fw_halo": "wavelets_tpu/ops/pallas/axis0.py:318",
+                "axis0_inv_halo": "wavelets_tpu/ops/pallas/axis0.py:417"}
+    # the card's name and power limit again, beside the numbers below
+    print(smi, flush=True)
     emit({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"wavelets_tpu_torch/csrc/{src[name]}",

@@ -115,9 +115,11 @@ def test_route_is_two_launches_per_level(L):
     after_launches, after = _counts()
     assert after_launches == launches
     assert {k: mid[k] - before[k] for k in before} == {
-        "level_fw": L, "level_inv": 0, "axis0_fw": L, "axis0_inv": 0}
+        "level_fw": L, "level_inv": 0, "axis0_fw": L, "axis0_inv": 0,
+        "axis0_fw_halo": 0, "axis0_inv_halo": 0}
     assert {k: after[k] - mid[k] for k in before} == {
-        "level_fw": 0, "level_inv": L, "axis0_fw": 0, "axis0_inv": L}
+        "level_fw": 0, "level_inv": L, "axis0_fw": 0, "axis0_inv": L,
+        "axis0_fw_halo": 0, "axis0_inv_halo": 0}
 
 
 def test_inputs_are_not_written():

@@ -6,9 +6,11 @@ version, and only a CUDA tensor launches (and counts) a kernel.
 """
 
 import os
+import re
 import shutil
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -40,6 +42,10 @@ def test_import_leaves_jax_out():
         "pyramid2d, scratch, tail1d, tail2d, wpt)\n"
         "from wavelets_tpu_torch import subbands, transforms\n"
         "from wavelets_tpu_torch.wt import convert\n"
+        "from wavelets_tpu_torch.threshold import (denoise, entropy, ops, "
+        "pursuit)\n"
+        "from wavelets_tpu_torch.parallel import (apps, costmodel, mesh, "
+        "mesh2d, sharded)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'wavelets_tpu' or m.startswith('wavelets_tpu.')]\n"
         "assert not bad, bad\n"
@@ -47,13 +53,42 @@ def test_import_leaves_jax_out():
     assert res.returncode == 0, res.stderr
 
 
+def test_no_module_imports_jax_or_the_jax_package():
+    """No import statement of the port or of chip_smoke.py names jax or
+    wavelets_tpu."""
+    pat = re.compile(r"^\s*(import|from)\s+(jax|wavelets_tpu)\b", re.M)
+    files = sorted(Path(ROOT, "wavelets_tpu_torch").rglob("*.py"))
+    files.append(Path(ROOT, "chip_smoke.py"))
+    assert len(files) > 40
+    for f in files:
+        assert not pat.search(f.read_text()), f
+
+
 def test_the_jax_packages_public_surface_is_exported():
-    """Every transform, subband and polyphase name of wavelets_tpu's
-    surface (wavelets_tpu/__init__.py) exists in the port."""
+    """Every transform, subband, polyphase and threshold name of
+    wavelets_tpu's surface (wavelets_tpu/__init__.py) exists in the port,
+    and every name of wavelets_tpu.parallel in its parallel package."""
     for name in ("dwt", "idwt", "wpt", "iwpt", "modwt", "imodwt", "dwtc",
                  "idwtc", "dwt_subbands", "idwt_subbands", "to_packed",
-                 "from_packed", "split_last", "merge_last"):
+                 "from_packed", "split_last", "merge_last",
+                 "threshold", "HardTH", "SoftTH", "SemiSoftTH", "SteinTH",
+                 "BiggestTH", "PosTH", "NegTH", "DNFT", "VisuShrink",
+                 "denoise", "noisest", "coefentropy", "Entropy",
+                 "ShannonEntropy", "LogEnergyEntropy", "bestbasistree",
+                 "matchingpursuit"):
         assert name in wtt.__all__ and callable(getattr(wtt, name)), name
+    from importlib import import_module
+    from wavelets_tpu_torch import parallel
+    threshold = import_module("wavelets_tpu_torch.threshold")
+    for name in ("make_mesh", "shard_rows", "dwt1", "idwt1", "dwt2",
+                 "idwt2", "dwt3", "idwt3", "bestbasistree", "noisest",
+                 "denoise", "wpt", "iwpt", "modwt", "imodwt", "mesh2d"):
+        assert name in parallel.__all__ and hasattr(parallel, name), name
+    for name in ("make_mesh2d", "shard_grid", "shard_grid3", "dwt2",
+                 "idwt2", "dwt3", "idwt3"):
+        assert hasattr(parallel.mesh2d, name), name
+    for name in ("THType", "DEFAULT_TH", "DEFAULT_WAVELET"):
+        assert name in threshold.__all__, name
 
 
 def test_import_builds_nothing():
@@ -69,6 +104,8 @@ def test_build_key_follows_sources():
         "axis0.cu", "level1d.cu", "level2d.cu", "modwt1d.cu", "tail1d.cu",
         "tail2d.cu"]
     assert set(build._SIGNATURES) >= {"wtt_axis0_fw", "wtt_axis0_inv",
+                                      "wtt_axis0_fw_halo",
+                                      "wtt_axis0_inv_halo",
                                       "wtt_modwt_fw", "wtt_modwt_inv"}
     key = build._key()
     assert len(key) == 16 and key == build._key()
@@ -102,7 +139,8 @@ def _calls(name):
 @pytest.mark.parametrize("name", ["level_fw", "level_inv", "tail_fw",
                                   "tail_inv", "level1d_fw", "level1d_inv",
                                   "tail1d_fw", "tail1d_inv", "axis0_fw",
-                                  "axis0_inv", "modwt_fw", "modwt_inv"])
+                                  "axis0_inv", "modwt_fw", "modwt_inv",
+                                  "axis0_fw_halo", "axis0_inv_halo"])
 def test_cpu_tensor_takes_plain_version(name):
     wt = wtt.wavelet(wtt.wt.cdf97, "lifting")
     x = torch.as_tensor(np.random.default_rng(5).standard_normal((2, 16, 8)))
@@ -123,6 +161,11 @@ def test_cpu_tensor_takes_plain_version(name):
         "axis0_inv": lambda: axis0.axis0_inv(x, x.clone(), wt),
         "modwt_fw": lambda: modwt1d.modwt_fw(rows, db4, 2),
         "modwt_inv": lambda: modwt1d.modwt_inv(rows, rows.clone(), db4, 2),
+        "axis0_fw_halo": lambda: axis0.axis0_fw(x, wt, above=x[:, :4],
+                                                below=x[:, :3]),
+        "axis0_inv_halo": lambda: axis0.axis0_inv(
+            x, x.clone(), wt, halos=(x[:, :2], x[:, :2], x[:, :2],
+                                     x[:, :2])),
     }[name]
     launches, plain = _calls(name)
     run()

@@ -2,7 +2,9 @@
 
 It runs the periodic 1-D, 2-D and 3-D DWT (batched rows and single long
 signals for ``ndt=1``), the wavelet packet transform and the MODWT, with
-their inverses, through hand-written CUDA kernels for the H100
+their inverses, the threshold layer (denoising, best basis, matching
+pursuit) and, in ``parallel``, all of these sharded over a mesh of torch
+devices, through hand-written CUDA kernels for the H100
 (``csrc/``, built with ``nvcc`` at first use), with a plain PyTorch version
 beside every kernel that a CPU tensor takes.  The other routes run on the
 torch engines (``ops/lifting.py``, ``ops/filter_fb.py``).  A non-tensor
@@ -14,6 +16,11 @@ Public surface (the part of ``wavelets_tpu``'s that is ported so far):
   transforms:  dwt, idwt (ndt = 1, 2, 3), wpt, iwpt, modwt, imodwt, dwtc,
                idwtc (complex input as two real transforms)
   subbands:    dwt_subbands, idwt_subbands, to_packed, from_packed
+  threshold:   threshold and its operators (HardTH, SoftTH, ...), DNFT,
+               VisuShrink, denoise, noisest, coefentropy, the entropies,
+               bestbasistree, matchingpursuit
+  parallel:    Mesh, Sharded, make_mesh, the sharded and grid transforms
+               and the distributed apps (``wavelets_tpu_torch.parallel``)
   polyphase:   split_last, merge_last
   wavelets:    wt.wavelet, wt.cdf97, wt.haar, wt.db4, ... (wt module)
   utilities:   index math, maketree, isvalidtree, testfunction, ...
@@ -38,6 +45,12 @@ from .wt import (
 from .transforms import dwt, idwt, wpt, iwpt, modwt, imodwt, dwtc, idwtc
 from .ops.lifting import split_last, merge_last
 from .subbands import dwt_subbands, idwt_subbands, to_packed, from_packed
+from .threshold import (
+    threshold, HardTH, SoftTH, SemiSoftTH, SteinTH, BiggestTH, PosTH, NegTH,
+    DNFT, VisuShrink, denoise, noisest,
+    coefentropy, Entropy, ShannonEntropy, LogEnergyEntropy, bestbasistree,
+    matchingpursuit,
+)
 
 __version__ = "0.1.0"
 
@@ -57,4 +70,8 @@ __all__ = [
     "mirror", "upsample", "downsample", "wcount", "circshift",
     "split_last", "merge_last",
     "makewavelet", "testfunction",
+    "threshold", "HardTH", "SoftTH", "SemiSoftTH", "SteinTH", "BiggestTH",
+    "PosTH", "NegTH", "DNFT", "VisuShrink", "denoise", "noisest",
+    "coefentropy", "Entropy", "ShannonEntropy", "LogEnergyEntropy",
+    "bestbasistree", "matchingpursuit",
 ]

@@ -13,10 +13,19 @@ inverse: the two planes in, one ``(B, 2Rh, C)`` view out.  It may read
 which is how the 3-D inverse joins the deeper level's result to the stored
 details without a copy.
 
+Halo mode: given ``above=``/``below=`` (``axis0_fw``) or ``halos=``
+(``axis0_inv``), the rows that the level reads beyond the view come from
+those ``(B, H, C)`` views instead of a periodic wrap: row ``r < 0`` from
+``above[H + r]``, row ``r >= R`` from ``below[r - R]``.  The sharded drivers
+(parallel/sharded.py) run each shard's level so, with the neighbours' edge
+rows.  :func:`halo_reach` gives the rows each side needs, from the bands
+(not the TPU kernels' sublane-rounded halo); a shorter halo raises.
+
 Both are driven by the wavelet's bands (ops/bands.py), as kernels A-H are;
-the plain versions are the 1-D passes of ops/level2d.py along dim -2.
-They replace the TPU kernels of ``wavelets_tpu/ops/pallas/axis0.py`` (see
-csrc/axis0.cu).  A tensor on the CPU takes the plain PyTorch version
+the plain versions are the 1-D passes of ops/level2d.py along dim -2 (in
+halo mode over ``[above; x; below]``, without a wrap).  They replace the
+TPU kernels of ``wavelets_tpu/ops/pallas/axis0.py``, the halo mode its
+``_ext`` variants (see csrc/axis0.cu).  A tensor on the CPU takes the plain PyTorch version
 (``axis0_fw_plain``, ``axis0_inv_plain``); a CUDA tensor launches the
 kernel or raises.  Arithmetic runs in float32 for float32 and bfloat16
 storage (bfloat16 outputs are rounded once) and in float64 for float64.
@@ -25,19 +34,59 @@ storage (bfloat16 outputs are rounded once) and in float64 for float64.
 from __future__ import annotations
 
 import ctypes
+from functools import lru_cache
 
 import torch
 
 from . import build
-from .bands import acc_dtype, band_table
+from .bands import acc_dtype, band_reach, band_table, syn_reach
 from .level2d import _analysis, _check_disjoint, _check_input, _check_plane, \
     _synthesis
 
 __all__ = ["LAUNCHES", "PLAIN_CALLS", "axis0_fw", "axis0_fw_plain",
-           "axis0_inv", "axis0_inv_plain"]
+           "axis0_inv", "axis0_inv_plain", "halo_reach"]
 
-LAUNCHES = {"axis0_fw": 0, "axis0_inv": 0}
-PLAIN_CALLS = {"axis0_fw": 0, "axis0_inv": 0}
+# the halo mode counts apart from the periodic one
+LAUNCHES = {"axis0_fw": 0, "axis0_inv": 0, "axis0_fw_halo": 0,
+            "axis0_inv_halo": 0}
+PLAIN_CALLS = {"axis0_fw": 0, "axis0_inv": 0, "axis0_fw_halo": 0,
+               "axis0_inv_halo": 0}
+
+
+@lru_cache(maxsize=None)
+def halo_reach(wt, inverse: bool) -> tuple[int, int]:
+    """(rows above, rows below) that one level reads beyond the view: the
+    analysis bands reach ``2k + delta`` (k < R/2), the synthesis bands
+    ``k + delta`` (k < Rh)."""
+    if inverse:
+        left, right = syn_reach(wt)
+        return max(0, left), max(0, right)
+    left, right = band_reach(wt)
+    return max(0, left), max(0, right - 1)
+
+
+def _check_halos(halos, ref, reach, inverse):
+    """None without halos; else the halo views, checked: each ``(B, H, C)``
+    like ``ref``, above at least ``reach[0]`` rows tall and below
+    ``reach[1]`` (for the inverse the two above-halos of equal height)."""
+    if all(h is None for h in halos):
+        return None
+    if any(h is None for h in halos):
+        raise ValueError("give every halo view, or none")
+    B, _, C = ref.shape
+    names = (("a_above", "a_below", "d_above", "d_below") if inverse
+             else ("above", "below"))
+    for k, (name, h) in enumerate(zip(names, halos)):
+        if not isinstance(h, torch.Tensor) or h.dim() != 3:
+            raise ValueError(f"{name} must be a (B, H, C) tensor")
+        _check_plane(h, name, (B, h.shape[1], C), ref.dtype, ref.device)
+        need = reach[k % 2]
+        if h.shape[1] < need:
+            raise ValueError(f"{name} has {h.shape[1]} rows, shorter than "
+                             f"the bands' reach of {need}")
+    if inverse and halos[0].shape[1] != halos[2].shape[1]:
+        raise ValueError("a_above and d_above need the same height")
+    return tuple(halos)
 
 
 def _fw_outs(x, a, d):
@@ -77,23 +126,38 @@ def _inv_args(a, d, out, corner):
 
 # --- plain versions ----------------------------------------------------------
 
-def axis0_fw_plain(x, wt, a=None, d=None):
+def axis0_fw_plain(x, wt, a=None, d=None, *, above=None, below=None):
     """Plain PyTorch version of :func:`axis0_fw` (same outputs, same
     layout), computed with index_select gathers in the arithmetic type."""
     _check_input(x)
     a, d = _fw_outs(x, a, d)
-    PLAIN_CALLS["axis0_fw"] += 1
-    sa, sd = _analysis(x.to(acc_dtype(x.dtype)), wt, -2)
+    halos = _check_halos((above, below), x, halo_reach(wt, False), False)
+    acc = acc_dtype(x.dtype)
+    if halos is None:
+        PLAIN_CALLS["axis0_fw"] += 1
+        sa, sd = _analysis(x.to(acc), wt, -2)
+    else:
+        PLAIN_CALLS["axis0_fw_halo"] += 1
+        ext = torch.cat([above, x, below], dim=1).to(acc)
+        sa, sd = _analysis(ext, wt, -2, (above.shape[1], x.shape[1]))
     a.copy_(sa)
     d.copy_(sd)
     return a, d
 
 
-def axis0_inv_plain(a, d, wt, out=None, corner=None):
+def axis0_inv_plain(a, d, wt, out=None, corner=None, *, halos=None):
     """Plain PyTorch version of :func:`axis0_inv`."""
     out = _inv_args(a, d, out, corner)
-    PLAIN_CALLS["axis0_inv"] += 1
+    halos = _inv_halos(a, wt, corner, halos)
     acc = acc_dtype(a.dtype)
+    if halos is not None:
+        PLAIN_CALLS["axis0_inv_halo"] += 1
+        a_above, a_below, d_above, d_below = halos
+        s = torch.cat([a_above, a, a_below], dim=1).to(acc)
+        dd = torch.cat([d_above, d, d_below], dim=1).to(acc)
+        out.copy_(_synthesis(s, dd, wt, -2, (a_above.shape[1], a.shape[1])))
+        return out
+    PLAIN_CALLS["axis0_inv"] += 1
     s = a.to(acc, copy=True)
     if corner is not None:
         Bc, _, Cc = corner.shape
@@ -102,17 +166,53 @@ def axis0_inv_plain(a, d, wt, out=None, corner=None):
     return out
 
 
+def _inv_halos(a, wt, corner, halos):
+    if halos is None:
+        return None
+    if corner is not None:
+        raise ValueError("axis0_inv takes a corner or halos, not both")
+    if len(halos) != 4:
+        raise ValueError("halos must be (a_above, a_below, d_above, d_below)")
+    return _check_halos(halos, a, halo_reach(wt, True), True)
+
+
 # --- kernels -----------------------------------------------------------------
 
-def _launch_fw(x, wt, a, d, stream):
+def _halo_args(halos):
+    """The C interface's halo arrays: pointers, batch and row strides."""
+    n = len(halos)
+    return ((ctypes.c_void_p * n)(*[h.data_ptr() for h in halos]),
+            (ctypes.c_int64 * n)(*[h.stride(0) for h in halos]),
+            (ctypes.c_int64 * n)(*[h.stride(1) for h in halos]),
+            halos[0].shape[1])
+
+
+def _launch_fw(x, wt, a, d, halos, stream):
     table = band_table(wt, False, x.dtype, x.device)
     B, R, C = x.shape
-    build.check(build.library().wtt_axis0_fw(
-        build.dtype_code(x.dtype), B, R, C, x.data_ptr(), x.stride(0),
-        x.stride(1), a.data_ptr(), a.stride(0), a.stride(1), d.data_ptr(),
-        d.stride(0), d.stride(1), table.offs.data_ptr(),
-        table.coefs.data_ptr(), *table.counts, table.dmin, table.span,
-        stream), "axis0_fw")
+    head = (build.dtype_code(x.dtype), B, R, C, x.data_ptr(), x.stride(0),
+            x.stride(1), a.data_ptr(), a.stride(0), a.stride(1), d.data_ptr(),
+            d.stride(0), d.stride(1))
+    tail = (table.offs.data_ptr(), table.coefs.data_ptr(), *table.counts,
+            table.dmin, table.span, stream)
+    lib = build.library()
+    if halos is None:
+        build.check(lib.wtt_axis0_fw(*head, *tail), "axis0_fw")
+    else:
+        build.check(lib.wtt_axis0_fw_halo(*head, *_halo_args(halos), *tail),
+                    "axis0_fw_halo")
+
+
+def _launch_inv_halo(a, d, wt, halos, out, stream):
+    table = band_table(wt, True, a.dtype, a.device)
+    B, Rh, C = a.shape
+    build.check(build.library().wtt_axis0_inv_halo(
+        build.dtype_code(a.dtype), B, Rh, C, a.data_ptr(), a.stride(0),
+        a.stride(1), d.data_ptr(), d.stride(0), d.stride(1),
+        *_halo_args(halos), out.data_ptr(), out.stride(0), out.stride(1),
+        table.offs.data_ptr(), table.coefs.data_ptr(),
+        (ctypes.c_int * 4)(*table.counts), table.dmin, table.span, stream),
+        "axis0_inv_halo")
 
 
 def _launch_inv(a, d, wt, out, corner, stream):
@@ -132,37 +232,49 @@ def _launch_inv(a, d, wt, out, corner, stream):
         "axis0_inv")
 
 
-def axis0_fw(x, wt, a=None, d=None):
+def axis0_fw(x, wt, a=None, d=None, *, above=None, below=None):
     """Forward level along the middle axis of ``x (B, R, C)`` into the
     planes ``a`` and ``d`` (``(B, R/2, C)``, unit column stride, any other
-    strides; allocated when both are None).  The outputs may not overlap
-    ``x``.  Returns ``(a, d)``."""
+    strides; allocated when both are None).  With ``above`` and ``below``
+    (``(B, H, C)`` views covering :func:`halo_reach`) the level reads the
+    rows beyond ``x`` from them instead of wrapping.  The outputs may not
+    overlap the inputs.  Returns ``(a, d)``."""
     _check_input(x)
     a, d = _fw_outs(x, a, d)
-    _check_disjoint((x,), (a, d), "axis0_fw")
+    halos = _check_halos((above, below), x, halo_reach(wt, False), False)
+    _check_disjoint((x,) + (halos or ()), (a, d), "axis0_fw")
     if x.device.type == "cpu":
-        return axis0_fw_plain(x, wt, a, d)
+        return axis0_fw_plain(x, wt, a, d, above=above, below=below)
     if x.numel():
         with torch.cuda.device(x.device):
-            _launch_fw(x, wt, a, d, torch.cuda.current_stream().cuda_stream)
-        LAUNCHES["axis0_fw"] += 1
+            _launch_fw(x, wt, a, d, halos,
+                       torch.cuda.current_stream().cuda_stream)
+        LAUNCHES["axis0_fw" if halos is None else "axis0_fw_halo"] += 1
     return a, d
 
 
-def axis0_inv(a, d, wt, out=None, corner=None):
+def axis0_inv(a, d, wt, out=None, corner=None, *, halos=None):
     """Inverse level along the middle axis: the planes ``a`` and ``d``
     ``(B, Rh, C)`` -> ``out (B, 2Rh, C)`` (allocated when None).  Where
     ``corner (Bc, Rh, Cc)`` is given, ``a[:Bc, :, :Cc]`` is read from it
-    instead.  Every view has unit column stride; ``out`` may not overlap
-    the inputs.  Returns ``out``."""
+    instead.  With ``halos = (a_above, a_below, d_above, d_below)``
+    (``(B, H, C)`` views covering :func:`halo_reach`, no corner) the rows
+    beyond the planes come from them instead of wrapping.  Every view has
+    unit column stride; ``out`` may not overlap the inputs.  Returns
+    ``out``."""
     out = _inv_args(a, d, out, corner)
-    reads = (a, d) if corner is None else (a, d, corner)
+    halos = _inv_halos(a, wt, corner, halos)
+    reads = (a, d) + ((corner,) if corner is not None else ()) + \
+        (halos or ())
     _check_disjoint(reads, (out,), "axis0_inv")
     if a.device.type == "cpu":
-        return axis0_inv_plain(a, d, wt, out, corner)
+        return axis0_inv_plain(a, d, wt, out, corner, halos=halos)
     if a.numel():
         with torch.cuda.device(a.device):
-            _launch_inv(a, d, wt, out, corner,
-                        torch.cuda.current_stream().cuda_stream)
-        LAUNCHES["axis0_inv"] += 1
+            stream = torch.cuda.current_stream().cuda_stream
+            if halos is None:
+                _launch_inv(a, d, wt, out, corner, stream)
+            else:
+                _launch_inv_halo(a, d, wt, halos, out, stream)
+        LAUNCHES["axis0_inv" if halos is None else "axis0_inv_halo"] += 1
     return out

@@ -80,10 +80,18 @@ _SIGNATURES = {
     # ns, nd, dmin, span, stream
     "wtt_axis0_fw": [_I, _I, _I, _I, _P, _L, _L, _P, _L, _L, _P, _L, _L, _P,
                      _P, _I, _I, _I, _I, _P],
+    # dtype, B, R, C, x, xsb, xsr, a, asb, asr, d, dsb, dsr, halos[2],
+    # hsb[], hsr[], ha, offs, coefs, ns, nd, dmin, span, stream
+    "wtt_axis0_fw_halo": [_I, _I, _I, _I, _P, _L, _L, _P, _L, _L, _P, _L, _L,
+                          _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P],
     # dtype, B, Rh, C, a, asb, asr, d, dsb, dsr, corner, csb, csr, Bc, Cc,
     # x, xsb, xsr, offs, coefs, counts[], smin, span, stream
     "wtt_axis0_inv": [_I, _I, _I, _I, _P, _L, _L, _P, _L, _L, _P, _L, _L, _I,
                       _I, _P, _L, _L, _P, _P, _P, _I, _I, _P],
+    # dtype, B, Rh, C, a, asb, asr, d, dsb, dsr, halos[4], hsb[], hsr[], ha,
+    # x, xsb, xsr, offs, coefs, counts[], smin, span, stream
+    "wtt_axis0_inv_halo": [_I, _I, _I, _I, _P, _L, _L, _P, _L, _L, _P, _P, _P,
+                           _I, _P, _L, _L, _P, _P, _P, _I, _I, _P],
     # dtype, B, N, dil, v, vsr, vse, v1, v1sr, v1se, w1, w1sr, w1se, taps,
     # nt, stream
     "wtt_modwt_fw": [_I, _I, _I, _I, _P, _L, _L, _P, _L, _L, _P, _L, _L, _P,

@@ -100,34 +100,46 @@ def _planes_args(planes):
 
 # --- plain versions ----------------------------------------------------------
 
-def _analysis(v, wt, dim):
-    """(a, d) of one periodic level of ``v`` along ``dim``, from the bands."""
-    n = v.shape[dim]
-    k2 = 2 * torch.arange(n // 2, device=v.device)
+def _analysis(v, wt, dim, ext=None):
+    """(a, d) of one periodic level of ``v`` along ``dim``, from the bands.
+    With ``ext = (lead, n)``, ``v`` holds ``lead`` halo rows, then the n
+    rows to transform, then halo rows below them: the level reads row
+    ``lead + 2k + delta`` of ``v`` and never wraps."""
+    n, lead, wrap = v.shape[dim], 0, True
+    if ext is not None:
+        (lead, n), wrap = ext, False
+    k2 = 2 * torch.arange(n // 2, device=v.device) + lead
     ds, cs, dd, cd = level_bands(wt)
 
     def corr(deltas, coefs):
         acc = None
         for dl, c in zip(deltas, coefs):
-            t = float(c) * v.index_select(dim, (k2 + int(dl)) % n)
+            idx = k2 + int(dl)
+            t = float(c) * v.index_select(dim, idx % n if wrap else idx)
             acc = t if acc is None else acc + t
         return acc
 
     return corr(ds, cs), corr(dd, cd)
 
 
-def _synthesis(s, d, wt, dim):
-    """Inverse of _analysis: (s, d) of half length -> the merged signal."""
+def _synthesis(s, d, wt, dim, ext=None):
+    """Inverse of _analysis: (s, d) of half length -> the merged signal.
+    With ``ext = (lead, half)`` the planes hold ``lead`` halo rows above and
+    some below the ``half`` rows, which are read without a wrap."""
     dim = dim % s.dim()
-    half = s.shape[dim]
-    k = torch.arange(half, device=s.device)
+    half, lead, wrap = s.shape[dim], 0, True
+    if ext is not None:
+        (lead, half), wrap = ext, False
+    k = torch.arange(half, device=s.device) + lead
     bands = synthesis_bands(wt)
     parts = []
     for p in (0, 1):
         acc = None
         for src, (deltas, coefs) in ((s, bands[2 * p]), (d, bands[2 * p + 1])):
             for dl, c in zip(deltas, coefs):
-                t = float(c) * src.index_select(dim, (k + int(dl)) % half)
+                idx = k + int(dl)
+                t = float(c) * src.index_select(dim, idx % half if wrap
+                                                else idx)
                 acc = t if acc is None else acc + t
         parts.append(acc)
     return torch.stack(parts, dim=dim + 1).flatten(dim, dim + 1)

@@ -27,7 +27,7 @@ from . import filter_fb, level1d, lifting
 from .level2d import DTYPES
 from .scratch import Scratch
 
-__all__ = ["wpt", "iwpt"]
+__all__ = ["wpt", "iwpt", "packet_level"]
 
 
 def _periodic(wt) -> bool:
@@ -47,6 +47,27 @@ def _engine_level(rows, wt, fw: bool):
     return lifting.lifting_level_inv(rows[..., :half], rows[..., half:], wt)
 
 
+def packet_level(segs, wt, fw: bool, out=None, *, plain: bool = False):
+    """One level of every row of ``segs (R, nj)``: ``[s | d]`` per row
+    (forward) or the merged rows (inverse), into ``out`` where given (it may
+    not overlap ``segs``).  A periodic boundary with float32, bfloat16 or
+    float64 data takes kernel E or F (their plain versions with
+    ``plain=True``); the rest takes the torch engines."""
+    if not (_periodic(wt) and segs.dtype in DTYPES):
+        res = _engine_level(segs, wt, fw)
+        return res if out is None else out.copy_(res)
+    if out is None:
+        out = torch.empty_like(segs)
+    half = segs.shape[-1] // 2
+    if fw:
+        (level1d.level1d_fw_plain if plain else level1d.level1d_fw)(
+            segs, wt, out[:, :half], out[:, half:])
+    else:
+        (level1d.level1d_inv_plain if plain else level1d.level1d_inv)(
+            segs[:, :half], segs[:, half:], wt, out=out)
+    return out
+
+
 def _wpt_impl(x, wt, tree: np.ndarray, fw: bool, plain: bool):
     n = x.shape[-1]
     tree = np.asarray(tree, dtype=bool)
@@ -58,10 +79,6 @@ def _wpt_impl(x, wt, tree: np.ndarray, fw: bool, plain: bool):
 
     Lmax = treedepth(tree)
     depths = range(Lmax) if fw else range(Lmax - 1, -1, -1)
-    kernel = _periodic(wt) and x.dtype in DTYPES
-    level_fw, level_inv = (
-        (level1d.level1d_fw_plain, level1d.level1d_inv_plain) if plain
-        else (level1d.level1d_fw, level1d.level1d_inv))
     B = int(np.prod(x.shape[:-1], dtype=np.int64))
     y = x.reshape(B, n).contiguous()
     scratch = Scratch(y, (B * n, B * n))
@@ -73,16 +90,9 @@ def _wpt_impl(x, wt, tree: np.ndarray, fw: bool, plain: bool):
         if not flags.any():
             continue
         segs = y.view(B * nseg, nj)
-        if kernel:
-            out = scratch.view(turn, B * nseg, nj)
-            turn ^= 1
-            half = nj // 2
-            if fw:
-                level_fw(segs, wt, out[:, :half], out[:, half:])
-            else:
-                level_inv(segs[:, :half], segs[:, half:], wt, out=out)
-        else:
-            out = _engine_level(segs, wt, fw)
+        out = packet_level(segs, wt, fw, scratch.view(turn, B * nseg, nj),
+                           plain=plain)
+        turn ^= 1
         if not flags.all():
             mask = torch.as_tensor(flags, device=y.device)[:, None]
             out = torch.where(mask, out.view(B, nseg, nj),
