@@ -32,6 +32,12 @@ exits non-zero:
                   bit; with random halos (taller than the reach, strided)
                   they are held against their plain versions; R = 2H,
                   narrow C and strided views, four wavelets, three dtypes.
+  2f. kernelsstage -- kernel N (levels 1 and 2 in one launch) against its
+                  plain version: haar, cdf97, db4 and coif4 (a long table),
+                  1024^2, a strided ragged 1000 x 1544, a batch of 2 and
+                  4 x 4, LL2 into a scratch or into the packed corner, three
+                  dtypes; and whether it equals two launches of A bit for
+                  bit.
   3. main      -- dwt/idwt of the 16384^2 float32 image, cdf97 lifting, 8
                   levels, through the public entry points; the launch counts
                   show the route, the round trip is checked, and smaller
@@ -59,6 +65,13 @@ exits non-zero:
                   nspin=(4, 4)) of a 16384^2 signal plus noise and the
                   bestbasistree of the 2^20 signal (db4), each held against
                   a float64 run on the card.
+  3g. mainroutes -- the public dwt/idwt of the 16384^2 image (cdf97, L8)
+                  under each row of the JAX package's switch table
+                  (transforms.routes2d, the environment set around the
+                  calls): each route's launch table (stage: N, A x5, C;
+                  split: (E + I) x7 and C, D and (J + F) x7), its result
+                  against the default route's, an f64 round trip at 2048^2,
+                  and db4 at 4096^2 the same way.
   4. times     -- CUDA-event times (median of three chained measurements) of
                   the 2-D main path in f32 and bf16, the same-run copy floor
                   and sol_fraction, the 2048^2 forward, and each 2-D kernel
@@ -71,21 +84,31 @@ exits non-zero:
                   contiguous store and the permuted copy that the column
                   store replaces.
   4d. timessharded -- the sharded forward and inverse on 4 shards and on 1,
-                  the TI denoise and the best-basis search (bench.py's
-                  inputs), with host times; I and J in halo mode at one
-                  shard's level-1 shape (4096, 16384) beside their plain
-                  versions and a conv2d over [above; x; below] (the cat
-                  made beforehand, not timed).
+                  the TI denoise (one spin at a time) and the best-basis
+                  search (bench.py's inputs), with host times; I and J in
+                  halo mode at one shard's level-1 shape (4096, 16384)
+                  beside their plain versions and a conv2d over [above; x;
+                  below] (the cat made beforehand, not timed).
+  4e. timesroutes -- each route of 3g forward and inverse: CUDA-event time,
+                  host time per call, and device busy time and idle share
+                  from a trace (N's kernel must appear in the stage
+                  forward's); kernel N at 16384^2 levels 1-2 beside its
+                  plain version and two conv2d calls; E, I, J and F at the
+                  split route's level-1 shapes (cdf97 and db4), beside
+                  their plain versions and conv1d / conv2d calls.
   5. trace     -- torch.profiler over five calls of each path (the sharded
                   forward included): the device time of each launch of one
                   call, the device's busy time, and its idle share against
                   the calls' time with the profiler off.
 
-Then nvidia-smi's line again, the per-kernel JSON line, and last
-{"ok": true, "device": {...}}.
+Then the run's wall time, nvidia-smi's line again, the per-kernel JSON line
+(a row per kernel, and one per TPU kernel that a route of 3g maps onto one
+of them), and last {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import json
+import os
 import re
 import subprocess
 import time
@@ -100,11 +123,13 @@ from wavelets_tpu_torch import profiling as P
 from wavelets_tpu_torch.parallel import mesh as pmesh, sharded as psharded
 from wavelets_tpu_torch.ops import (axis0, bands, build, dwt1d, dwt3d,
                                     level1d, level2d, lifting, modwt1d,
-                                    pyramid2d, tail1d, tail2d)
+                                    pyramid2d, rowcol2d, stage2d, tail1d,
+                                    tail2d)
 from wavelets_tpu_torch.ops import modwt as modwt_ops
 from wavelets_tpu_torch.ops import wpt as wpt_ops
 from wavelets_tpu_torch.threshold import entropy as th_entropy
 from wavelets_tpu_torch.ops.bands import tap_count as taps
+from wavelets_tpu_torch.transforms import routes2d
 
 WAVELETS = (("cdf97", "lifting"), ("haar", "lifting"), ("db4", "filter"))
 TOL = {torch.float64: 1e-12, torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
@@ -147,7 +172,7 @@ PEAK_FLOPS_F32 = 67e12
 # a library call computes the kernel's function within this of the plain
 # version (cuDNN sums in another order)
 LIBRARY_TOL = 1e-4
-MODULES = (level2d, tail2d, level1d, tail1d, axis0, modwt1d)
+MODULES = (level2d, tail2d, level1d, tail1d, axis0, modwt1d, stage2d)
 # the halo mode: wavelets, and (B, R, C) shapes with R = 2H as "2H"
 WAVELETS_HALO = WAVELETS + (("sym5", "filter"),)
 SHAPES_HALO = ((1, "2H", 1), (3, "2H", 5), (2, 64, 3), (4, 96, 160),
@@ -155,6 +180,23 @@ SHAPES_HALO = ((1, "2H", 1), (3, "2H", 5), (2, 64, 3), (4, 96, 160),
 SHARDS = 4
 # denoise: levels, spin grid; the sharded path's denoise levels
 DENOISE_LEVELS, NSPIN = 6, (4, 4)
+# kernel N: wavelets (coif4's long table takes a 16-quad tile), and
+# (B, m, n) shapes, the ragged one read through a strided view
+WAVELETS_STAGE = WAVELETS + (("coif4", "filter"),)
+SHAPES_STAGE = ((1, 1024, 1024), (1, 1000, 1544), (2, 96, 160), (1, 4, 4))
+# the JAX package's 2-D switches (WAVELETS_TPU_<name>), and its switch
+# table: a name, the switches, the port's (forward, inverse) routes
+SWITCHES = ("MXU2D", "MXU_LS2", "FUSED2D", "FUSED_INV", "PACKED2D",
+            "PACKED_DMA")
+SWITCH_TABLE = (("default", {}, ("level", "level")),
+                ("mxu_ls2", {"MXU_LS2": "1"}, ("stage", "level")),
+                ("mxu2d_0", {"MXU2D": "0"}, ("level", "split")),
+                ("mxu2d_0_packed2d", {"MXU2D": "0", "PACKED2D": "1"},
+                 ("level", "split")),
+                ("mxu2d_0_fused2d_0", {"MXU2D": "0", "FUSED2D": "0"},
+                 ("split", "split")),
+                ("mxu2d_0_fused_inv", {"MXU2D": "0", "FUSED_INV": "1"},
+                 ("level", "level")))
 
 
 def emit(obj):
@@ -202,6 +244,42 @@ def launched(name, fn):
 
 def wavelet(name, kind):
     return w.wavelet(w.wt.ALL_CLASSES[name], kind)
+
+
+@contextlib.contextmanager
+def switched(switches):
+    """The JAX package's 2-D switches set as given, the others unset, for
+    the calls inside (the port reads them at every call)."""
+    keys = ["WAVELETS_TPU_" + k for k in SWITCHES]
+    saved = {k: os.environ.pop(k, None) for k in keys}
+    os.environ.update({"WAVELETS_TPU_" + k: v for k, v in switches.items()})
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+
+
+def route_launches(routes, m, n, L, wt, dtype):
+    """The launches of one dwt and one idwt of an (m, n) image on the
+    (forward, inverse) routes: the level launches above the tails."""
+    kf = pyramid2d.kernel_levels(m, n, L, wt, dtype, False)
+    ki = pyramid2d.kernel_levels(m, n, L, wt, dtype, True)
+    fw, inv = routes
+    out = {"tail_fw": int(kf < L), "tail_inv": int(ki < L)}
+    if fw == "split":
+        out.update(level1d_fw=kf, axis0_fw=kf)
+    elif fw == "stage" and pyramid2d.stage_ok(1, m, n, L, wt, dtype):
+        out.update(stage2_fw=1, level_fw=kf - 2)
+    else:
+        out.update(level_fw=kf)
+    if inv == "split":
+        out.update(axis0_inv=ki, level1d_inv=ki)
+    else:
+        out.update(level_inv=ki)
+    return out
 
 
 def bound(nbytes, flops):
@@ -407,6 +485,23 @@ def library_halo_inv(a, d, halos, wt):
     inp = torch.stack(planes)[None].contiguous()
     wgt = torch.from_numpy(w[..., None]).to(a)
     return lambda: F.conv2d(inp, wgt)
+
+
+def library_inv1d_polyphase(s, d, wt):
+    """The polyphase form of the 1-D inverse, one conv1d: (s, d) of ``(B,
+    nh)`` as two input channels, wrapped beforehand; output channel p holds
+    the samples 2k + p, ``(B, 2, nh)`` (interleave1d merges them)."""
+    w_, smin = _polyphase(wt)
+    K, nh = w_.shape[2], s.shape[1]
+    idx = _wrap_index(nh + K - 1, smin, nh, s.device)
+    inp = torch.stack([s[:, idx], d[:, idx]], 1).contiguous()
+    wgt = torch.from_numpy(w_).to(s)
+    return lambda: F.conv1d(inp, wgt)
+
+
+def interleave1d(o):
+    """library_inv1d_polyphase's ``(B, 2, nh)`` as the merged ``(B, 2nh)``."""
+    return o.transpose(1, 2).reshape(o.shape[0], -1)
 
 
 def _modwt_taps(wt):
@@ -726,6 +821,52 @@ def phase_kernelshalo(dev, shapes=SHAPES_HALO):
           "wrapped_halos_bit_equal": True,
           "tolerance": {str(k)[6:]: v for k, v in TOL.items()},
           "worst_rel_err": worst})
+
+
+def phase_kernelsstage(dev):
+    rng = np.random.default_rng(6)
+    worst, bit_equal = {}, {}
+    cases = 0
+    nan = float("nan")
+    for (wname, kind) in WAVELETS_STAGE:
+        wt = wavelet(wname, kind)
+        for dt, tol in TOL.items():
+            for B, m, n in SHAPES_STAGE:
+                x = strided(rng, (B, m, n), dt, dev)
+                ref = stage2d.stage2_fw_plain(x, wt)
+                errs = {}
+                # LL2 into a scratch of its own, or into the packed corner
+                # (a transform of two levels)
+                for mode in ("scratch", "corner"):
+                    y = torch.full((B, m, n), nan, dtype=dt, device=dev)
+                    ll2 = (y[:, : m >> 2, : n >> 2] if mode == "corner"
+                           else torch.empty_like(ref[0]))
+                    outs = (ll2, *level2d.detail_planes(y, 1),
+                            *level2d.detail_planes(y, 2))
+                    launched("stage2_fw", lambda: stage2d.stage2_fw(
+                        x, wt, outs))
+                    errs[f"stage2_fw_{mode}"] = max(map(rel_err, outs, ref))
+                    left = torch.isnan(y)
+                    require(bool(left[:, : m >> 2, : n >> 2].all())
+                            if mode == "scratch" else not bool(left.any()),
+                            f"stage2_fw writes exactly its planes: {wname} "
+                            f"{(B, m, n)} {dt} {mode}")
+                ll1, *d1 = level2d.level_fw(x, wt)
+                two = level2d.level_fw(ll1, wt)
+                key = str(dt)[6:]
+                bit_equal[key] = bit_equal.get(key, True) and all(
+                    torch.equal(g, r) for g, r in zip(
+                        outs, (two[0], *d1, *two[1:])))
+                check_all("kernelsstage", errs, (wname, B, m, n), dt, tol,
+                          worst)
+                cases += 1
+    require(bit_equal["float32"] and bit_equal["bfloat16"],
+            f"N bit-equal to two A launches in f32 and bf16: {bit_equal}")
+    emit({"phase": "kernelsstage", "cases": cases,
+          "shapes": [list(r) for r in SHAPES_STAGE],
+          "wavelets": [nm for nm, _ in WAVELETS_STAGE],
+          "tolerance": {str(k)[6:]: v for k, v in TOL.items()},
+          "worst_rel_err": worst, "bit_equal_to_two_A_launches": bit_equal})
 
 
 def phase_main(x):
@@ -1075,6 +1216,55 @@ def phase_mainthreshold(xsig, x1):
                             "cost_rel_diff": e_bb}})
 
 
+def phase_mainroutes(x):
+    """Each row of the switch table through the public dwt/idwt: 16384^2
+    cdf97 and 4096^2 db4, L8, f32.  Returns the launches of each route's
+    run, by switch-table name and input."""
+    cdf, db4 = wavelet("cdf97", "lifting"), wavelet("db4", "filter")
+    inputs = (("cdf97_16384", cdf, x),
+              ("db4_4096", db4, x[:4096, :4096].contiguous()))
+    x2 = x[:2048, :2048].double()
+    ref, launches, out = {}, {}, {}
+    for name, switches, routes in SWITCH_TABLE:
+        launches[name], rec = {}, {"switches": switches,
+                                   "routes": list(routes)}
+        with switched(switches):
+            require(routes2d() == routes, f"{name}: routes {routes2d()}")
+            for tag, wt, xt in inputs:
+                fw = lambda v: w.dwt(v, wt, LEVELS)       # noqa: E731
+                inv = lambda v: w.idwt(v, wt, LEVELS)     # noqa: E731
+                expected = route_launches(routes, *xt.shape, LEVELS, wt,
+                                          xt.dtype)
+                y, got, wall, rt = run_route(f"{name} {tag}", fw, inv, xt,
+                                             expected)
+                launches[name][tag] = {k: v for k, v in got.items() if v}
+                if name == "default":
+                    ref[tag] = (y, inv(y))
+                e_fw = rel_err(y, ref[tag][0])
+                e_inv = rel_err(inv(ref[tag][0]), ref[tag][1])
+                require(e_fw <= TOL[torch.float32] and
+                        e_inv <= TOL[torch.float32],
+                        f"{name} {tag} against the default route: "
+                        f"{e_fw:.3e}, {e_inv:.3e}")
+                rec[tag] = {"launches": launches[name][tag],
+                            "wall_s_first_call_pair": wall,
+                            "roundtrip_max_abs_err": rt,
+                            "fw_vs_default_rel_err": e_fw,
+                            "inv_vs_default_rel_err": e_inv}
+                del y
+            rt64 = (w.idwt(w.dwt(x2, cdf, LEVELS), cdf, LEVELS) - x2).abs() \
+                .max().item()
+            require(rt64 <= 1e-12, f"{name} f64 round trip {rt64:.3e}")
+            rec["f64_roundtrip_2048_max_abs_err"] = rt64
+        out[name] = rec
+    require(launches["mxu_ls2"]["cdf97_16384"].get("stage2_fw") == 1,
+            "the stage route ran kernel N")
+    emit({"phase": "mainroutes", "shape": [SIZE, SIZE], "levels": LEVELS,
+          "dtype": "float32", "tolerance_vs_default": TOL[torch.float32],
+          "routes": out})
+    return launches
+
+
 def kernel_row(name, kern, plain, outs, tol, library=None, lib_ref=None):
     """Time a kernel beside its plain version (and a library call), and
     check the three agree; ``outs`` are the buffers the kernel writes."""
@@ -1416,6 +1606,101 @@ def phase_timessharded(x, x1, x24):
     return rows
 
 
+def phase_timesroutes(x):
+    """Each route's times, and kernel N and the split level's kernels
+    beside their plain versions and library calls."""
+    cdf, db4 = wavelet("cdf97", "lifting"), wavelet("db4", "filter")
+    out = {"phase": "timesroutes", "shape": [SIZE, SIZE], "levels": LEVELS,
+           "wavelet": "cdf97", "dtype": "float32"}
+    fw = lambda v: w.dwt(v, cdf, LEVELS)        # noqa: E731
+    inv = lambda v: w.idwt(v, cdf, LEVELS)      # noqa: E731
+    for name, switches, routes in SWITCH_TABLE:
+        with switched(switches):
+            rec = path_times(fw, inv, x, 4 / 3)
+            yt = fw(x)
+            tf, ti = trace(fw, x), trace(inv, yt)
+            del yt
+        rec.update(fw_busy_us=tf["busy_us_per_call"],
+                   fw_idle_share=tf["idle_share"],
+                   inv_busy_us=ti["busy_us_per_call"],
+                   inv_idle_share=ti["idle_share"])
+        rec.update(fw_launch_us=tf["launch_us"],
+                   inv_launch_us=ti["launch_us"])
+        if routes[0] == "stage":
+            require(any(k == "stage2_fw_kernel" for k, _ in tf["launch_us"]),
+                    f"the stage forward's trace shows kernel N: "
+                    f"{tf['launch_us']}")
+        out[name] = rec
+    copy_ms = out["default"]["copy_ms"]
+
+    # N at 16384^2 levels 1-2, beside two conv2d calls (levels 1 and 2)
+    xb = x[None]
+    y = torch.empty_like(xb)
+    outs = (torch.empty((1, SIZE // 4, SIZE // 4), dtype=x.dtype,
+                        device=x.device),
+            *level2d.detail_planes(y, 1), *level2d.detail_planes(y, 2))
+    lib1 = library_fw2d(xb, cdf)
+    lib2 = library_fw2d(level2d.level_fw(xb, cdf)[0], cdf)
+    rows = {}
+    rows["stage2_fw"] = kernel_row(
+        "stage2_fw", lambda: stage2d.stage2_fw(xb, cdf, outs),
+        lambda: stage2d.stage2_fw_plain(xb, cdf, outs), outs, TOL[x.dtype],
+        lambda: (lib1(), lib2()),
+        lambda o: [o[1][:, 0], o[0][:, 1], o[0][:, 2], o[0][:, 3],
+                   o[1][:, 1], o[1][:, 2], o[1][:, 3]])
+    rows["stage2_fw"]["library_calls"] = "conv2d at level 1 + conv2d at level 2"
+    # the kernel at a 16-quad tile, launched past the wrapper (which takes
+    # stage_tile's side): what the smaller tile costs
+    stream = torch.cuda.current_stream().cuda_stream
+    out["stage2_fw_tile16_ms"] = P.med3(
+        lambda _: stage2d._launch(xb, cdf, outs, 16, stream), xb, 10) * 1e3
+    out["stage2_fw_tile"] = stage2d.stage_tile(cdf, x.dtype)
+    del lib1, lib2
+
+    # E, I, J and F at the split route's level-1 shapes: E over the 16384
+    # rows into the scratch [s | d], I down it into y's halves, J back
+    # into a scratch, F over its rows
+    h = SIZE // 2
+    sc, sc2, xr = (torch.empty_like(xb) for _ in range(3))
+    s_, d_ = sc[0, :, :h], sc[0, :, h:]
+    a_, dd_ = y[:, :h], y[:, h:]
+    s2, d2 = sc2[0, :, :h], sc2[0, :, h:]
+    for key, wt in (("lifting", cdf), ("filter", db4)):
+        rows[f"{key}_row_fw"] = kernel_row(
+            f"{key}_row_fw", lambda: level1d.level1d_fw(x, wt, s_, d_),
+            lambda: level1d.level1d_fw_plain(x, wt, s_, d_), (s_, d_),
+            TOL[x.dtype], library_fw1d(x, wt), lambda o: [o[:, 0], o[:, 1]])
+        rows[f"{key}_col_fw"] = kernel_row(
+            f"{key}_col_fw", lambda: axis0.axis0_fw(sc, wt, a_, dd_),
+            lambda: axis0.axis0_fw_plain(sc, wt, a_, dd_), (a_, dd_),
+            TOL[x.dtype], library_axis0_fw(sc[0].view(SIZE, 1, SIZE), wt),
+            lambda o: [o[0, i].view(1, h, SIZE) for i in (0, 1)])
+        rows[f"{key}_col_inv"] = kernel_row(
+            f"{key}_col_inv", lambda: axis0.axis0_inv(a_, dd_, wt, out=sc2),
+            lambda: axis0.axis0_inv_plain(a_, dd_, wt, out=sc2), (sc2,),
+            TOL[x.dtype], library_axis0_inv(y[0, :h], y[0, h:], wt),
+            lambda o: [interleave_rows(o, (SIZE, 1, SIZE)).view(1, SIZE,
+                                                                SIZE)])
+        rows[f"{key}_row_inv"] = kernel_row(
+            f"{key}_row_inv", lambda: level1d.level1d_inv(s2, d2, wt,
+                                                          out=xr[0]),
+            lambda: level1d.level1d_inv_plain(s2, d2, wt, out=xr[0]),
+            (xr[0],), TOL[x.dtype], library_inv1d_polyphase(s2, d2, wt),
+            lambda o: [interleave1d(o)])
+    emit(out)
+    nbytes = 2 * x.numel() * x.element_size()
+    rows["stage2_fw"]["bound_ms"], rows["stage2_fw"]["bound_by"] = bound(
+        nbytes, 2 * taps(cdf, False) * x.numel() * 1.25)
+    rows["stage2_fw"]["copy_bound_ms"] = copy_ms
+    for key, wt in (("lifting", cdf), ("filter", db4)):
+        for part in ("row_fw", "col_fw", "col_inv", "row_inv"):
+            r = rows[f"{key}_{part}"]
+            r["bound_ms"], r["bound_by"] = bound(
+                nbytes, taps(wt, part.endswith("inv")) * x.numel())
+            r["copy_bound_ms"] = copy_ms
+    return rows
+
+
 def trace(fn, x, calls=5):
     """torch.profiler over ``calls`` calls of ``fn(x)``: the device time of
     each of this repo's kernel launches in the first call, and the device's
@@ -1484,6 +1769,7 @@ def phase_trace(x, xs):
 
 
 def main():
+    t_start = time.perf_counter()
     smi = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
@@ -1492,6 +1778,7 @@ def main():
     phase_kernels3d(dev)
     phase_kernelsmodwt(dev)
     phase_kernelshalo(dev)
+    phase_kernelsstage(dev)
     x = torch.from_numpy(np.random.default_rng(0).standard_normal(
         (SIZE, SIZE)).astype(np.float32)).to(dev)
     # each kernel's launches on its own main path
@@ -1510,6 +1797,9 @@ def main():
     phase_mainthreshold(xsig, xs[(1 << 20,)])
     del xsig
     torch.cuda.empty_cache()
+    by_route = phase_mainroutes(x)
+    launches["stage2_fw"] = by_route["mxu_ls2"]["cdf97_16384"]["stage2_fw"]
+    torch.cuda.empty_cache()
     require(all(v > 0 for v in launches.values()),
             f"every kernel launched on its main path: {launches}")
     rows = phase_times(dev, x)
@@ -1521,6 +1811,8 @@ def main():
     torch.cuda.empty_cache()
     rows.update(phase_timessharded(x, xs[(1 << 20,)], xs[(1 << 24,)]))
     torch.cuda.empty_cache()
+    rows.update(phase_timesroutes(x))
+    torch.cuda.empty_cache()
     phase_trace(x, xs)
     src = {"level_fw": "level2d.cu", "level_inv": "level2d.cu",
            "tail_fw": "tail2d.cu", "tail_inv": "tail2d.cu",
@@ -1528,7 +1820,8 @@ def main():
            "tail1d_fw": "tail1d.cu", "tail1d_inv": "tail1d.cu",
            "axis0_fw": "axis0.cu", "axis0_inv": "axis0.cu",
            "modwt_fw": "modwt1d.cu", "modwt_inv": "modwt1d.cu",
-           "axis0_fw_halo": "axis0.cu", "axis0_inv_halo": "axis0.cu"}
+           "axis0_fw_halo": "axis0.cu", "axis0_inv_halo": "axis0.cu",
+           "stage2_fw": "stage2d.cu"}
     replaces = {"level_fw": "wavelets_tpu/ops/pallas/mxu2d.py:1610",
                 "level_inv": "wavelets_tpu/ops/pallas/mxu2d.py:1236",
                 "tail_fw": "wavelets_tpu/ops/pallas/tail2d.py:52",
@@ -1542,7 +1835,29 @@ def main():
                 "modwt_fw": "wavelets_tpu/ops/pallas/modwt1d.py:85",
                 "modwt_inv": "wavelets_tpu/ops/pallas/modwt1d.py:93",
                 "axis0_fw_halo": "wavelets_tpu/ops/pallas/axis0.py:318",
-                "axis0_inv_halo": "wavelets_tpu/ops/pallas/axis0.py:417"}
+                "axis0_inv_halo": "wavelets_tpu/ops/pallas/axis0.py:417",
+                "stage2_fw": "wavelets_tpu/ops/pallas/stage2d.py:154"}
+    # the TPU kernels that a route of phase 3g runs on a kernel above: its
+    # name, the kernel, the row of measurements, the TPU kernel, and its
+    # launches on that route
+    pallas = "wavelets_tpu/ops/pallas/"
+    mapped = [
+        ("fused2d_quad_fw", "level_fw", "level_fw", "fused2d.py:229",
+         by_route["mxu2d_0"]["cdf97_16384"]["level_fw"]),
+        ("fused2d_packed_fw", "level_fw", "level_fw", "fused2d.py:274",
+         by_route["mxu2d_0_packed2d"]["cdf97_16384"]["level_fw"]),
+        ("fused2d_inv", "level_inv", "level_inv", "fused2d.py:420",
+         by_route["mxu2d_0_fused_inv"]["cdf97_16384"]["level_inv"])]
+    for key, mod, tag, lines in (
+            ("lifting", "lifting2d", "cdf97_16384", (165, 172, 202, 246)),
+            ("filter", "filter2d", "db4_4096", (104, 119, 152, 198))):
+        split = by_route["mxu2d_0_fused2d_0"][tag]
+        for (part, kern), line in zip(
+                (("row_fw", "level1d_fw"), ("row_inv", "level1d_inv"),
+                 ("col_fw", "axis0_fw"), ("col_inv", "axis0_inv")), lines):
+            mapped.append((f"{mod}_{part}", kern, f"{key}_{part}",
+                           f"{mod}.py:{line}", split[kern]))
+    emit({"phase": "wall", "seconds": time.perf_counter() - t_start})
     # the card's name and power limit again, beside the numbers below
     print(smi, flush=True)
     emit({"kernels": [
@@ -1551,8 +1866,16 @@ def main():
          "replaces": replaces[name], "launches": launches[name],
          **{k: rows[name][k] for k in ("max_abs_err", "ms", "plain_ms",
                                         "bound_ms", "bound_by",
-                                        "library_ms", "copy_bound_ms")}}
-        for name in src]})
+                                        "library_ms", "copy_bound_ms",
+                                        "library_calls") if k in rows[name]}}
+        for name in src] + [
+        {"name": name, "route": "cuda",
+         "source": f"wavelets_tpu_torch/csrc/{src[kern]}",
+         "replaces": pallas + where, "launches": n, "runs_on": kern,
+         **{k: rows[row][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by",
+                                       "library_ms", "copy_bound_ms")}}
+        for name, kern, row, where, n in mapped]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

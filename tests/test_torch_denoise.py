@@ -110,6 +110,41 @@ def test_denoise_TI_matches(shape, nspin):
     _close(got, want)
 
 
+@pytest.mark.parametrize("shape, nspin", [((128,), 8), ((32, 32), (2, 3))])
+@pytest.mark.parametrize("chunk", [1, 3, 1000])
+def test_denoise_TI_spin_chunk_matches(shape, nspin, chunk):
+    """spin_chunk spins at a time, on the drivers' batch axis: the JAX
+    package's chunked vmap sums in another order, so 1e-10 relative."""
+    ref = J.wt.wavelet(J.wt.db2)
+    wt = from_reference(ref)
+    x = J.testfunction(shape[0], "Bumps")
+    if len(shape) == 2:
+        x = np.add.outer(x, x[::-1])
+    x = x + 0.1 * np.random.default_rng(37).standard_normal(shape)
+    want = J.denoise(jnp.asarray(x), ref, L=3, TI=True, nspin=nspin,
+                     spin_chunk=chunk)
+    got = T.denoise(torch.from_numpy(x), wt, L=3, TI=True, nspin=nspin,
+                    spin_chunk=chunk)
+    _close(got, want, tol=1e-10)
+
+
+@pytest.mark.parametrize("shape, nspin", [((128,), 8), ((32, 32), (2, 3))])
+def test_denoise_TI_spin_chunk_biggest_per_spin(shape, nspin):
+    """BiggestTH keeps m coefficients of each spin's transform, also when
+    the spins of a chunk share one batch."""
+    ref = J.wt.wavelet(J.wt.db2)
+    x = np.random.default_rng(38).standard_normal(shape)
+    m = x.size // 8
+    want = J.denoise(jnp.asarray(x), ref, L=3, TI=True, nspin=nspin,
+                     spin_chunk=3, dnt=J.VisuShrink(J.BiggestTH(), m),
+                     estnoise=lambda v, wt: 1.0)
+    got = T.denoise(torch.from_numpy(x), from_reference(ref), L=3, TI=True,
+                    nspin=nspin, spin_chunk=3,
+                    dnt=T.VisuShrink(T.BiggestTH(), m),
+                    estnoise=lambda v, wt: 1.0)
+    _close(got, want, tol=1e-10)
+
+
 def test_spin_shifts_fortran_order():
     assert np.array_equal(TD._spin_shifts((2, 3), 2),
                           JD._spin_shifts((2, 3), 2))

@@ -19,7 +19,8 @@ import torch
 import wavelets_tpu_torch as wtt
 from wavelets_tpu_torch import profiling
 from wavelets_tpu_torch.ops import (axis0, build, dwt1d, level1d, level2d,
-                                    modwt1d, pyramid2d, tail1d, tail2d)
+                                    modwt1d, pyramid2d, stage2d, tail1d,
+                                    tail2d)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -101,12 +102,13 @@ def test_import_builds_nothing():
 
 def test_build_key_follows_sources():
     assert [p.name for p in build.SOURCES] == [
-        "axis0.cu", "level1d.cu", "level2d.cu", "modwt1d.cu", "tail1d.cu",
-        "tail2d.cu"]
+        "axis0.cu", "level1d.cu", "level2d.cu", "modwt1d.cu", "stage2d.cu",
+        "tail1d.cu", "tail2d.cu"]
     assert set(build._SIGNATURES) >= {"wtt_axis0_fw", "wtt_axis0_inv",
                                       "wtt_axis0_fw_halo",
                                       "wtt_axis0_inv_halo",
-                                      "wtt_modwt_fw", "wtt_modwt_inv"}
+                                      "wtt_modwt_fw", "wtt_modwt_inv",
+                                      "wtt_stage2_fw"}
     key = build._key()
     assert len(key) == 16 and key == build._key()
     assert "arch=compute_90a,code=sm_90a" in build.FLAGS
@@ -125,7 +127,7 @@ def test_compile_needs_nvcc(tmp_path):
     assert not (tmp_path / "key").exists()
 
 
-_MODULES = (level2d, tail2d, level1d, tail1d, axis0, modwt1d)
+_MODULES = (level2d, tail2d, level1d, tail1d, axis0, modwt1d, stage2d)
 
 
 def _calls(name):
@@ -140,7 +142,8 @@ def _calls(name):
                                   "tail_inv", "level1d_fw", "level1d_inv",
                                   "tail1d_fw", "tail1d_inv", "axis0_fw",
                                   "axis0_inv", "modwt_fw", "modwt_inv",
-                                  "axis0_fw_halo", "axis0_inv_halo"])
+                                  "axis0_fw_halo", "axis0_inv_halo",
+                                  "stage2_fw"])
 def test_cpu_tensor_takes_plain_version(name):
     wt = wtt.wavelet(wtt.wt.cdf97, "lifting")
     x = torch.as_tensor(np.random.default_rng(5).standard_normal((2, 16, 8)))
@@ -166,6 +169,7 @@ def test_cpu_tensor_takes_plain_version(name):
         "axis0_inv_halo": lambda: axis0.axis0_inv(
             x, x.clone(), wt, halos=(x[:, :2], x[:, :2], x[:, :2],
                                      x[:, :2])),
+        "stage2_fw": lambda: stage2d.stage2_fw(x, wt),
     }[name]
     launches, plain = _calls(name)
     run()

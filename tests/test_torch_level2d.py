@@ -3,7 +3,10 @@
 The plain versions, which a CPU tensor takes, are held against the TPU
 kernels they stand beside (``mxu2d.mxu_level_fw_quads`` and
 ``mxu_inv_packed``, run in interpret mode as tests/test_mxu2d.py runs
-them) in float32, and against the JAX float64 engines.  The CUDA kernels
+them) and against fused2d's single-pass level, which computes the same
+(``_quad_kernel``, ``_packed_kernel``, ``_inv_kernel``, the JAX package's
+route under ``WAVELETS_TPU_MXU2D=0``), in float32, and against the JAX
+float64 engines.  The CUDA kernels
 themselves are held against these plain versions on the card by
 chip_smoke.py.
 """
@@ -17,7 +20,7 @@ from threadpoolctl import threadpool_limits
 
 import wavelets_tpu as J
 from wavelets_tpu.ops import filter_fb as JF, lifting as JL
-from wavelets_tpu.ops.pallas import mxu2d
+from wavelets_tpu.ops.pallas import fused2d, mxu2d
 
 import wavelets_tpu_torch as T
 from wavelets_tpu_torch.ops import level2d
@@ -98,6 +101,60 @@ def test_packed_mode_matches_packed_mxu_kernels_f32(dma, monkeypatch):
     details = np.asarray(y_want).copy()
     details[:128, :256] = np.nan       # LL went to its own array on both
     assert np.allclose(y[0].numpy(), details, atol=2e-4, equal_nan=True)
+
+
+def _rel(got, want):
+    want = np.asarray(want, np.float64)
+    return np.abs(np.asarray(got, np.float64) - want).max() / \
+        np.abs(want).max()
+
+
+@pytest.mark.parametrize("name, kind", [("cdf97", "lifting"),
+                                        ("db4", "filter")])
+def test_a_matches_fused_level_kernels_f32(name, kind):
+    """A's plain version in quads mode against fused2d's _quad_kernel and in
+    packed mode against _packed_kernel (level_fw_packed_first)."""
+    ref, wt = _carriers(name, kind)
+    x = np.random.default_rng(101).standard_normal((256, 512)).astype(
+        np.float32)
+    assert fused2d.fused_ok(256, 512, ref, np.float32)
+    assert fused2d.packed_ok(256, 512, ref, np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        quads = fused2d.fused_level_fw_quads(jnp.asarray(x), ref)
+        ll_p, y_p = (np.asarray(v) for v in
+                     fused2d.level_fw_packed_first(jnp.asarray(x), ref))
+    got = level2d.level_fw_plain(torch.from_numpy(x)[None], wt)
+    for g, w in zip(got, quads):
+        assert _rel(g[0].numpy(), w) < 2e-4
+    y = torch.full((1, 256, 512), float("nan"))
+    ll = torch.empty((1, 128, 256))
+    level2d.level_fw(torch.from_numpy(x)[None], wt,
+                     (ll, *level2d.detail_planes(y, 1)))
+    assert _rel(ll[0].numpy(), ll_p) < 2e-4
+    for g, w in zip(level2d.detail_planes(y, 1),
+                    (y_p[:128, 256:], y_p[128:, :256], y_p[128:, 256:])):
+        assert _rel(g[0].numpy(), w) < 2e-4
+
+
+@pytest.mark.parametrize("name, kind", [("db2", "filter"),
+                                        ("cdf97", "lifting")])
+def test_b_matches_fused_inverse_kernel_f32(name, kind):
+    """B's plain version, reading its planes in place from the packed
+    array, against fused2d's _inv_kernel (level_inv_packed), at the
+    smallest shape fused_inv_ok takes."""
+    ref, wt = _carriers(name, kind)
+    m, n = 64, 1024
+    assert fused2d.fused_inv_ok(m, n, ref, np.float32)
+    assert not fused2d.fused_inv_ok(m // 2, n, ref, np.float32)
+    y = np.random.default_rng(102).standard_normal((m, n)).astype(
+        np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(fused2d.level_inv_packed(
+            jnp.asarray(y), jnp.asarray(y[: m // 2, : n // 2]), (m, n), ref))
+    yt = torch.from_numpy(y)[None]
+    got = level2d.level_inv_plain(yt[:, : m // 2, : n // 2],
+                                  *level2d.detail_planes(yt, 1), wt)
+    assert _rel(got[0].numpy(), want) < 2e-4
 
 
 CASES = [("cdf97", "lifting"), ("haar", "lifting"), ("db2", "lifting"),

@@ -48,11 +48,16 @@ def test_biggest_keeps_the_m_largest_with_ties_by_index(m):
 
 
 def test_stein_maps_zero_to_zero():
-    x = torch.tensor([0.0, 0.5, -2.0, 0.0])
-    for t in (0.0, 1.0):
-        out = T.threshold(x, T.SteinTH(), t)
-        assert torch.isfinite(out).all() and out[0] == 0 and out[3] == 0
-    assert torch.equal(T.threshold(x, T.SteinTH(), 0.0), x)
+    """At x = 0 both packages compute 1 - t^2/0: NaN where t = 0 (0/0),
+    and 0 where t > 0."""
+    x = np.array([0.0, 0.5, -2.0, 0.0, 1e-3])
+    for t in (0.0, 0.7, 1.0):
+        want = np.asarray(J.threshold(jnp.asarray(x), J.SteinTH(), t))
+        got = T.threshold(torch.from_numpy(x), T.SteinTH(), t).numpy()
+        assert np.array_equal(got, want, equal_nan=True), t
+        assert np.isnan(got[0]) == (t == 0.0) and np.isnan(got[3]) == (t == 0)
+        if t > 0:
+            assert got[0] == 0 and got[3] == 0
 
 
 def test_threshold_takes_a_tensor_threshold_and_keeps_dtype():

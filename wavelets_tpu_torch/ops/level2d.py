@@ -93,9 +93,10 @@ def detail_planes(y, l):
 
 
 def _planes_args(planes):
-    return ((ctypes.c_void_p * 4)(*[p.data_ptr() for p in planes]),
-            (ctypes.c_int64 * 4)(*[p.stride(0) for p in planes]),
-            (ctypes.c_int64 * 4)(*[p.stride(1) for p in planes]))
+    k = len(planes)
+    return ((ctypes.c_void_p * k)(*[p.data_ptr() for p in planes]),
+            (ctypes.c_int64 * k)(*[p.stride(0) for p in planes]),
+            (ctypes.c_int64 * k)(*[p.stride(1) for p in planes]))
 
 
 # --- plain versions ----------------------------------------------------------

@@ -16,6 +16,22 @@ LL into ``y``'s corner, so there is no closing copy.  The inverse mirrors
 it: one tail launch for the deepest levels, then one level launch per
 level, reading the detail quadrants in place from ``y``.
 
+Routes (``route=``), the counterparts of the JAX package's switches
+(transforms.py picks one per call):
+
+* ``"level"``: the levels above, kernels A then C / D then B.
+* ``"stage"`` (forward only): kernel N (ops/stage2d.py) runs levels 1 and
+  2 in one launch, writing both levels' details into ``y`` and LL2 into a
+  scratch view (into ``y``'s corner when L == 2); then A per level and C.
+  It takes a single image whose first two levels are level launches
+  (:func:`stage_ok`); elsewhere the route runs A per level, as the JAX
+  package's ``stage2_ok`` gate sends such calls to the per-level kernels.
+* ``"split"``: each level as two launches (ops/rowcol2d.py): E over the
+  rows into a scratch, I down its columns straight into the level's place
+  in ``y``, whose LL the next level reads in place; then C in place on the
+  corner.  The inverse runs D into a scratch, then per level J (reading
+  the deeper LL through its corner view) and F.
+
 The image index rides the kernels' batch axis.  On the CPU every launch
 takes its kernel's plain version, through the same route.
 """
@@ -24,16 +40,21 @@ from __future__ import annotations
 
 import torch
 
-from . import level2d, tail2d
+from . import level2d, rowcol2d, stage2d, tail2d
 from .level2d import detail_planes
 from .scratch import Scratch
 
-__all__ = ["dwt2", "idwt2", "kernel_levels", "detail_planes"]
+__all__ = ["dwt2", "idwt2", "kernel_levels", "detail_planes", "stage_ok",
+           "ROUTES"]
 
+ROUTES = ("level", "stage", "split")
 _KERNELS = (level2d.level_fw, level2d.level_inv, tail2d.tail_fw,
-            tail2d.tail_inv)
+            tail2d.tail_inv, stage2d.stage2_fw, rowcol2d.rowcol_fw,
+            rowcol2d.rowcol_inv)
 _PLAIN = (level2d.level_fw_plain, level2d.level_inv_plain,
-          tail2d.tail_fw_plain, tail2d.tail_inv_plain)
+          tail2d.tail_fw_plain, tail2d.tail_inv_plain,
+          stage2d.stage2_fw_plain, rowcol2d.rowcol_fw_plain,
+          rowcol2d.rowcol_inv_plain)
 
 
 def kernel_levels(m: int, n: int, L: int, wt, dtype, inverse: bool) -> int:
@@ -45,47 +66,91 @@ def kernel_levels(m: int, n: int, L: int, wt, dtype, inverse: bool) -> int:
     return k
 
 
-def dwt2(x, wt, L: int, *, plain: bool = False):
+def stage_ok(B: int, m: int, n: int, L: int, wt, dtype) -> bool:
+    """The stage route's gate for kernel N: one image, m and n divisible by
+    4, two levels or more, both of them level launches, and a band reach
+    that fits the kernel's window (:func:`stage2d.stage_tile`)."""
+    return (B == 1 and L >= 2 and m % 4 == 0 and n % 4 == 0
+            and kernel_levels(m, n, L, wt, dtype, inverse=False) >= 2
+            and stage2d.stage_tile(wt, dtype) is not None)
+
+
+def _check_route(route, inverse):
+    if route not in ROUTES or (inverse and route == "stage"):
+        raise ValueError(f"unknown route {route!r}")
+
+
+def dwt2(x, wt, L: int, *, route: str = "level", plain: bool = False):
     """L-level forward 2-D DWT of a contiguous ``x (B, m, n)`` -> packed
-    ``(B, m, n)``.  ``plain=True`` runs the kernels' plain versions on any
-    device (a reference for checking the kernels on the card)."""
-    level_fw, _, tail_fw, _ = _PLAIN if plain else _KERNELS
+    ``(B, m, n)``, through ``route`` (see the module docstring).
+    ``plain=True`` runs the kernels' plain versions on any device (a
+    reference for checking the kernels on the card)."""
+    _check_route(route, False)
+    level_fw, _, tail_fw, _, stage_fw, split_fw, _ = \
+        _PLAIN if plain else _KERNELS
     B, m, n = x.shape
     y = torch.empty_like(x)
     if L == 0:
         return y.copy_(x)
     k = kernel_levels(m, n, L, wt, x.dtype, inverse=False)
-    scratch = Scratch(x, (B * (m >> 1) * (n >> 1), B * (m >> 2) * (n >> 2)))
-    act = x
-    for l in range(1, k + 1):
-        mh, nh = m >> l, n >> l
-        ll = y[:, :mh, :nh] if l == L else scratch.view((l - 1) % 2, B, mh, nh)
-        level_fw(act, wt, (ll, *detail_planes(y, l)))
-        act = ll
+    if route == "split":
+        scratch = Scratch(x, (B * m * n, 0))
+        act = x
+        for l in range(1, k + 1):
+            ml, nl = m >> (l - 1), n >> (l - 1)
+            split_fw(act, wt, y[:, :ml, :nl], scratch.view(0, B, ml, nl))
+            act = y[:, : ml >> 1, : nl >> 1]
+    else:
+        scratch = Scratch(x, (B * (m >> 1) * (n >> 1), B * (m >> 2) * (n >> 2)))
+        act, first = x, 1
+        if route == "stage" and stage_ok(B, m, n, L, wt, x.dtype):
+            ll2 = (y[:, : m >> 2, : n >> 2] if L == 2
+                   else scratch.view(1, B, m >> 2, n >> 2))
+            stage_fw(x, wt, (ll2, *detail_planes(y, 1), *detail_planes(y, 2)))
+            act, first = ll2, 3
+        for l in range(first, k + 1):
+            mh, nh = m >> l, n >> l
+            ll = y[:, :mh, :nh] if l == L else scratch.view((l - 1) % 2, B, mh,
+                                                             nh)
+            level_fw(act, wt, (ll, *detail_planes(y, l)))
+            act = ll
     if k < L:
+        # in place on the split route: the tail reads its image first
         tail_fw(act, wt, L - k, out=y[:, : m >> k, : n >> k])
     return y
 
 
-def idwt2(y, wt, L: int, *, plain: bool = False):
-    """Inverse of :func:`dwt2`: packed ``y (B, m, n)`` -> ``(B, m, n)``."""
-    _, level_inv, _, tail_inv = _PLAIN if plain else _KERNELS
+def idwt2(y, wt, L: int, *, route: str = "level", plain: bool = False):
+    """Inverse of :func:`dwt2`: packed ``y (B, m, n)`` -> ``(B, m, n)``,
+    through ``route`` ("level" or "split")."""
+    _check_route(route, True)
+    _, level_inv, _, tail_inv, _, _, split_inv = _PLAIN if plain else _KERNELS
     B, m, n = y.shape
     out = torch.empty_like(y, memory_format=torch.contiguous_format)
     if L == 0:
         return out.copy_(y)
     k = kernel_levels(m, n, L, wt, y.dtype, inverse=True)
-    scratch = Scratch(y, (B * (m >> 1) * (n >> 1), B * (m >> 2) * (n >> 2)))
+    split = route == "split"
+    # the split route's J writes buffer 0, its F and the tail buffer 1
+    scratch = Scratch(y, (B * m * n, B * (m >> 1) * (n >> 1)) if split
+                      else (B * (m >> 1) * (n >> 1), B * (m >> 2) * (n >> 2)))
 
     def dest(l):   # where level l's merged (m >> (l-1), n >> (l-1)) goes
         if l == 1:
             return out
-        return scratch.view(l % 2, B, m >> (l - 1), n >> (l - 1))
+        return scratch.view(1 if split else l % 2, B, m >> (l - 1),
+                            n >> (l - 1))
 
     if k < L:
         act = tail_inv(y[:, : m >> k, : n >> k], wt, L - k, out=dest(k + 1))
     else:
         act = y[:, : m >> L, : n >> L]
     for l in range(k, 0, -1):
-        act = level_inv(act, *detail_planes(y, l), wt, out=dest(l))
+        if split:
+            ml, nl = m >> (l - 1), n >> (l - 1)
+            act = split_inv(y[:, :ml, :nl], wt, dest(l),
+                            corner=act if k < L or l < k else None,
+                            scratch=scratch.view(0, B, ml, nl))
+        else:
+            act = level_inv(act, *detail_planes(y, l), wt, out=dest(l))
     return out

@@ -2,11 +2,14 @@
 
 The counterpart of ``wavelets_tpu/threshold/denoise.py`` (reference:
 src/Threshold/denoising.jl).  The transforms are the port's ``dwt`` /
-``idwt``, so on the card they run the CUDA kernels.  The TI path is a host
-loop over the spin grid, as the JAX package's kernel route runs it: each
-spin is roll -> dwt -> threshold -> idwt -> unroll, added into one
-accumulator, so the peak memory is a few full-size arrays whatever the
-grid's size.
+``idwt``, so on the card they run the CUDA kernels.  The TI path runs the
+spins as the JAX package's two routes do: on the card one spin at a time
+(its kernel route: each spin's transforms fill the card, and the peak
+memory is one transform), on the CPU ``spin_chunk`` spins at a time (its
+vmapped route: the chunk's rolled copies ride the drivers' leading
+(batch) axis through one dwt -> threshold -> idwt, so the peak memory is
+about ``spin_chunk`` transforms).  The threshold acts on each spin's
+transform alone, as under vmap: ``BiggestTH`` keeps m coefficients of each.
 
 Medians: ``jnp.median`` averages the two middle values; here
 ``torch.quantile(v, 0.5, interpolation="midpoint")`` does the same, below
@@ -126,12 +129,14 @@ def _spin_shifts(nspin, ndim: int) -> np.ndarray:
 
 def denoise(x, wt: DiscreteWavelet | None = DEFAULT_WAVELET, *,
             L: int | None = None, dnt: DNFT | None = None,
-            estnoise=noisest, TI: bool = False, nspin=None, device=None):
+            estnoise=noisest, TI: bool = False, nspin=None,
+            spin_chunk: int = 8, device=None):
     """Wavelet-shrinkage denoising (reference: denoising.jl:22-82).
 
     TI=True averages over all circular shifts in the ``nspin`` grid
-    (default 8 per dimension), one spin at a time.  ``device`` as for
-    ``dwt``.
+    (default 8 per dimension): on a CUDA tensor one at a time, on a CPU
+    tensor ``spin_chunk`` at a time (at least one, at most the grid; peak
+    memory ``spin_chunk`` full-size transforms).  ``device`` as for ``dwt``.
     """
     x = _as_float(x, device)
     if not iscube(x):
@@ -143,8 +148,10 @@ def denoise(x, wt: DiscreteWavelet | None = DEFAULT_WAVELET, *,
         dnt = VisuShrink.for_length(x.shape[0])
     t = estnoise(x, wt) * dnt.t
 
-    def pipe(z):
-        y = threshold(dwt(z, wt, L, ndt=x.ndim), dnt.th, t)
+    def pipe(z):   # z: x's shape, or a chunk of them on a leading axis
+        y = dwt(z, wt, L, ndt=x.ndim)
+        y = threshold(y, dnt.th, t) if z.ndim == x.ndim else \
+            torch.stack([threshold(v, dnt.th, t) for v in y])
         return idwt(y, wt, L, ndt=x.ndim)
 
     if not TI:
@@ -157,11 +164,15 @@ def denoise(x, wt: DiscreteWavelet | None = DEFAULT_WAVELET, *,
         nspin = (nspin,)
     else:
         nspin = tuple(nspin)
-    shifts = _spin_shifts(nspin, x.ndim)
+    shifts = [tuple(int(s) for s in sh) for sh in _spin_shifts(nspin, x.ndim)]
     dims = tuple(range(x.ndim))
+    chunk = 1 if x.device.type == "cuda" else \
+        max(1, min(int(spin_chunk), len(shifts)))
     acc = torch.zeros_like(x)
-    for sh in shifts:
-        sh = tuple(int(s) for s in sh)
-        z = pipe(torch.roll(x, sh, dims))
-        acc += torch.roll(z, tuple(-s for s in sh), dims)
+    for c0 in range(0, len(shifts), chunk):
+        group = shifts[c0: c0 + chunk]
+        zs = [torch.roll(x, sh, dims) for sh in group]
+        zs = [pipe(zs[0])] if len(zs) == 1 else pipe(torch.stack(zs))
+        for z, sh in zip(zs, group):
+            acc += torch.roll(z, tuple(-s for s in sh), dims)
     return acc / len(shifts)

@@ -7,7 +7,6 @@ call sites read like the reference (``threshold(x, HardTH(), t)``).
 ``BiggestTH`` keeps the m largest magnitudes; among equal magnitudes the
 lower index wins, as ``lax.top_k`` decides, through a stable sort of
 ``-|x|`` (``torch.topk`` leaves the order of ties unspecified on CUDA).
-``SteinTH`` maps 0 to 0 for every threshold, t = 0 included.
 
 A tensor stays on its device; any other input goes to the card unless
 ``device`` is given (the port's device rule, transforms.py).
@@ -110,5 +109,5 @@ def threshold(x, th: THType, t=None, *, device=None):
         return torch.where(sh < 0, 0, torch.where(sh < t, ramp, x))
     if isinstance(th, SteinTH):
         sh = 1 - t * t / (x * x)
-        return torch.where((x == 0) | (sh < 0), 0, x * sh)
+        return torch.where(sh < 0, 0, x * sh)
     raise ValueError(f"unknown threshold type {th!r}")

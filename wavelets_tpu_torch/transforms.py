@@ -15,7 +15,8 @@ given; any other input (a NumPy array, a list, a scalar) is placed on
 that raises: pass ``device="cpu"`` to run on the CPU.
 
 Routing: a periodic boundary with float32, bfloat16 or float64 data goes to
-ops/pyramid2d.py for ``ndt == 2``, to ops/dwt1d.py for ``ndt == 1``
+ops/pyramid2d.py for ``ndt == 2`` (on the route that :func:`routes2d`
+reads from the JAX package's switches at every call), to ops/dwt1d.py for ``ndt == 1``
 (leading axes flatten onto the batch) and to ops/dwt3d.py for ``ndt == 3``
 (one volume at a time); their launches run the CUDA kernels on a CUDA
 tensor and their plain versions on a CPU tensor.  ``wpt``/``iwpt`` run one
@@ -27,6 +28,7 @@ tensor's own device.
 
 from __future__ import annotations
 
+import os
 from functools import lru_cache
 
 import numpy as np
@@ -41,7 +43,8 @@ from .ops import (dwt1d, dwt3d, filter_fb, lifting, modwt as modwt_ops,
                   modwt1d, pyramid2d, wpt as wpt_ops)
 from .ops.level2d import DTYPES
 
-__all__ = ["dwt", "idwt", "wpt", "iwpt", "modwt", "imodwt", "dwtc", "idwtc"]
+__all__ = ["dwt", "idwt", "wpt", "iwpt", "modwt", "imodwt", "dwtc", "idwtc",
+           "routes2d"]
 
 # transform dims = array rank, capped at 3 (higher ranks batch the leading
 # axes)
@@ -97,6 +100,39 @@ def _periodic(wt) -> bool:
     return getattr(wt, "boundary", "periodic") == "periodic"
 
 
+def routes2d() -> tuple[str, str]:
+    """The 2-D routes (forward, inverse) of ops/pyramid2d.py that mirror the
+    JAX package's switches, read at every call:
+
+    ==================================  ==================  ===============
+    switches                            JAX fw / inv        port fw / inv
+    ==================================  ==================  ===============
+    none                                mxu2d / mxu2d       level / level
+    ``MXU_LS2=1`` (``MXU2D``,           stage2d, mxu2d /    stage / level
+    ``PACKED2D``, ``PACKED_DMA`` not 0) mxu2d
+    ``MXU2D=0``                         fused2d / row-col   level / split
+    ``MXU2D=0 FUSED2D=0``               row-col / row-col   split / split
+    ``MXU2D=0 FUSED_INV=1``             fused2d / fused2d   level / level
+    ==================================  ==================  ===============
+
+    (each switch is ``WAVELETS_TPU_<name>``; under ``MXU2D=0`` the JAX
+    forward takes fused2d's packed kernel with ``PACKED2D=1``, whatever
+    ``FUSED2D`` says, and so does the port's level route).  The JAX
+    package's tile plans (``fused_ok``, ``_plan_level``, ``_stage_plan``)
+    are not mirrored: they size TPU memory, and the results agree.
+    """
+    env = os.environ.get
+    if env("WAVELETS_TPU_MXU2D") == "0":
+        fw = ("split" if env("WAVELETS_TPU_FUSED2D") == "0"
+              and env("WAVELETS_TPU_PACKED2D") != "1" else "level")
+        inv = "level" if env("WAVELETS_TPU_FUSED_INV") == "1" else "split"
+        return fw, inv
+    stage = (env("WAVELETS_TPU_MXU_LS2") == "1"
+             and env("WAVELETS_TPU_PACKED2D") != "0"
+             and env("WAVELETS_TPU_PACKED_DMA") != "0")
+    return ("stage" if stage else "level"), "level"
+
+
 def _transform(x, wt, L, ndt, fw):
     if L == 0:
         return x
@@ -106,7 +142,8 @@ def _transform(x, wt, L, ndt, fw):
     if ndt == 2 and _periodic(wt) and x.dtype in DTYPES:
         flat = x.reshape((-1,) + tuple(x.shape[-2:])).contiguous()
         fn = pyramid2d.dwt2 if fw else pyramid2d.idwt2
-        return fn(flat, wt, L).reshape(x.shape)
+        return fn(flat, wt, L, route=routes2d()[0 if fw else 1]).reshape(
+            x.shape)
     if ndt == 1 and _periodic(wt) and x.dtype in DTYPES:
         flat = x.reshape(-1, x.shape[-1]).contiguous()
         fn = dwt1d.dwt1 if fw else dwt1d.idwt1
