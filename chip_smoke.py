@@ -14,7 +14,11 @@ exits non-zero:
                   PyTorch version on the card: f64, f32 and bf16; cdf97 and
                   haar lifting and db4 filter; shapes from 2x2 to 2048^2 with
                   a batch of 3.  Tolerance on max|kernel - plain| / max|plain|:
-                  1e-12 (f64), 1e-5 (f32), 2^-7 (bf16).
+                  1e-12 (f64), 1e-5 (f32), 2^-7 (bf16).  The tails C and D
+                  also on one image (a cluster of blocks), for coif4 (the
+                  32-tap template) and db10 (the one-block generic kernel),
+                  in place at 128^2 L4 (64 x 128 in f64), and bit for bit
+                  against chains of A and B launches (L = 1-4; bf16 L = 1).
   2b. kernels1d -- the 1-D kernels (level forward E and inverse F, tail
                   forward G and inverse H) the same way: lengths 2 to 2^15
                   with a batch of 3, plus one 2^20 row for E and F, and E/F
@@ -100,6 +104,10 @@ exits non-zero:
                   forward included): the device time of each launch of one
                   call, the device's busy time, and its idle share against
                   the calls' time with the profiler off.
+  5b. timestails -- the tails C / D at one 128^2 level, device against
+                  device: kernel and library call by profiler time, host
+                  time, the launch floor and the cluster size; at B = 264,
+                  128^2, L4; and with clusters of 8 and 16 blocks.
 
 Then the run's wall time, nvidia-smi's line again, the per-kernel JSON line
 (a row per kernel, and one per TPU kernel that a route of 3g maps onto one
@@ -137,6 +145,12 @@ SHAPES = ((2, 2), (4, 8), (16, 16), (96, 160), (64, 128), (128, 128),
           (2048, 2048))
 SHAPES1D = (2, 8, 96, 4096, 1 << 14, 1 << 15)
 BATCH = 3
+# the dtypes in which C and D must equal chains of A and B launches bit for
+# bit (the one-block kernels that the cluster kernels replaced did, in all
+# three), and the wavelets that check C and D alone: a 24-tap table (the
+# 32-tap template) and a 40-tap one (the generic one-block kernel)
+TAIL_CHAIN_REQUIRED = ("float32", "float64", "bfloat16")
+WAVELETS_TAIL = (("coif4", "filter"), ("db10", "filter"))
 SIZE, LEVELS = 16384, 8
 # the 1-D main paths: name, shape, wavelet, levels, packet transform?
 PATHS1D = (("batched_4096x4096_db4_L8", (4096, 4096), ("db4", "filter"), 8,
@@ -578,7 +592,7 @@ def check_all(phase, errs, case, dt, tol, worst):
 
 def phase_kernels(dev):
     rng = np.random.default_rng(1)
-    worst = {}
+    worst, chain, clusters = {}, {}, set()
     cases = 0
     for (wname, kind) in WAVELETS:
         wt = wavelet(wname, kind)
@@ -603,23 +617,96 @@ def phase_kernels(dev):
                 got_inv = launched("level_inv",
                                    lambda: level2d.level_inv(*planes, wt))
                 errs["level_inv"] = rel_err(got_inv, ref_inv)
-                # C and D, all the levels the shape allows
-                Lt = w.maxtransformlevels((m, n))
+                # C and D, all the levels the shape allows, on the batch
+                # and on one image (a cluster of blocks)
                 if (tail2d.tail_fits(m, n, wt, dt)
                         and tail2d.tail_fits(m, n, wt, dt, inverse=True)):
-                    ref_t = tail2d.tail_fw_plain(x, wt, Lt)
-                    got_t = launched("tail_fw",
-                                     lambda: tail2d.tail_fw(x, wt, Lt))
-                    errs["tail_fw"] = rel_err(got_t, ref_t)
-                    ref_ti = tail2d.tail_inv_plain(ref_t, wt, Lt)
-                    got_ti = launched("tail_inv",
-                                      lambda: tail2d.tail_inv(ref_t, wt, Lt))
-                    errs["tail_inv"] = rel_err(got_ti, ref_ti)
+                    for B in (BATCH, 1):
+                        errs.update(check_tail(x[:B], wt, dt, chain,
+                                               clusters))
                 check_all("kernels", errs, (wname, m, n), dt, tol, worst)
                 cases += 1
+    # C and D alone for the longer tables: coif4 (24 taps, the 32-tap
+    # template) and db10 (40 taps, the one-block kernel with wrapped taps)
+    for (wname, kind) in WAVELETS_TAIL:
+        wt = wavelet(wname, kind)
+        for dt, tol in TOL.items():
+            for m, n in SHAPES:
+                if not (tail2d.tail_fits(m, n, wt, dt)
+                        and tail2d.tail_fits(m, n, wt, dt, inverse=True)):
+                    continue
+                x = torch.from_numpy(rng.standard_normal((BATCH, m, n))).to(
+                    dev).to(dt)
+                errs = {}
+                for B in (BATCH, 1):
+                    errs.update(check_tail(x[:B], wt, dt, chain, clusters))
+                check_all("kernels", errs, (wname, m, n), dt, tol, worst)
+                cases += 1
+    chain_ok = {k: all(v) for k, v in chain.items()}
+    for key in TAIL_CHAIN_REQUIRED:
+        require(chain_ok[key], f"C and D bit-equal to chains of A and B "
+                f"launches: {key}")
     emit({"phase": "kernels", "cases": cases, "batch": BATCH,
           "tolerance": {str(k)[6:]: v for k, v in TOL.items()},
-          "worst_rel_err": worst})
+          "worst_rel_err": worst, "tail_bit_equal_to_chain": chain_ok,
+          "tail_chain_cases": {k: len(v) for k, v in chain.items()},
+          "tail_clusters": sorted(clusters)})
+
+
+def chain_fw(x, wt, L):
+    """L launches of kernel A, each on the LL of the one before: the packed
+    result that C computes in one launch."""
+    B, m, n = x.shape
+    y = torch.empty_like(x)
+    act = x
+    for l in range(1, L + 1):
+        ll = (y[:, : m >> l, : n >> l] if l == L else
+              torch.empty((B, m >> l, n >> l), dtype=x.dtype, device=x.device))
+        level2d.level_fw(act, wt, (ll, *level2d.detail_planes(y, l)))
+        act = ll
+    return y
+
+
+def chain_inv(y, wt, L):
+    """L launches of kernel B, deepest level first: what D computes."""
+    _, m, n = y.shape
+    act = y[:, : m >> L, : n >> L]
+    for l in range(L, 0, -1):
+        act = level2d.level_inv(act, *level2d.detail_planes(y, l), wt)
+    return act
+
+
+def check_tail(x, wt, dt, chain, clusters):
+    """C and D on ``x (B, m, n)`` against their plain versions at every
+    level the shape allows; whether they equal chains of A and B launches
+    bit for bit (L = 1 .. 4 in f32 and f64, L = 1 in bf16: C keeps the LL
+    between levels in the arithmetic type, A rounds it to the storage
+    type); and, at 128^2 (64 x 128 in f64), in place."""
+    B, m, n = x.shape
+    Lt = w.maxtransformlevels((m, n))
+    ref = tail2d.tail_fw_plain(x, wt, Lt)
+    got = launched("tail_fw", lambda: tail2d.tail_fw(x, wt, Lt))
+    ref_i = tail2d.tail_inv_plain(ref, wt, Lt)
+    got_i = launched("tail_inv", lambda: tail2d.tail_inv(ref, wt, Lt))
+    plans = [tail2d.tail_plan(B, m, n, Lt, wt, dt, inv) for inv in (0, 1)]
+    clusters.update((B, m, n, p.cluster, p.split, p.taps) for p in plans)
+    key = str(dt)[6:]
+    for L in range(1, min(4, Lt) + 1) if dt != torch.bfloat16 else (1,):
+        y = tail2d.tail_fw(x, wt, L)
+        chain.setdefault(key, []).append(torch.equal(y, chain_fw(x, wt, L)))
+        chain[key].append(torch.equal(tail2d.tail_inv(y, wt, L),
+                                      chain_inv(y, wt, L)))
+    if (m, n) == ((64, 128) if dt == torch.float64 else (128, 128)):
+        xi = x.clone()
+        tail2d.tail_fw(xi, wt, 4, out=xi)
+        require(torch.equal(xi, tail2d.tail_fw(x, wt, 4)),
+                f"C in place {(B, m, n)} {dt}")
+        yi = xi.clone()
+        tail2d.tail_inv(yi, wt, 4, out=yi)
+        require(torch.equal(yi, tail2d.tail_inv(xi, wt, 4)),
+                f"D in place {(B, m, n)} {dt}")
+    return {f"tail_fw_b{B}": rel_err(got, ref),
+            f"tail_inv_b{B}": rel_err(got_i, ref_i)}
 
 
 def phase_kernels1d(dev):
@@ -1372,6 +1459,107 @@ def phase_times(dev, x):
     return rows
 
 
+def device_us(fn, calls=20):
+    """Device microseconds per call of ``fn()`` from torch.profiler: the
+    summed duration of its device events over ``calls`` calls, divided by
+    ``calls`` (host overhead between launches does not count)."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    require(ev, "the profiler recorded device events")
+    return sum(e.time_range.end - e.time_range.start for e in ev) / calls
+
+
+def tail_times(x, rows):
+    """The tails beside their yardsticks, device against device: one 128^2
+    level of one image (the cluster path) with the device time of kernel
+    and library call from the profiler, the host's time per call and the
+    launch floor (a chained ``small + 1`` of the same size), added to the
+    tail rows of phase 4; then :func:`tail_batch_times` and
+    :func:`tail_cluster_times`.  It runs after phase 5, whose trace it
+    leaves as it was."""
+    dev, wt = x.device, w.wavelet(w.wt.cdf97, "lifting")
+    small = x[None, :128, :128].contiguous()
+    ys = tail2d.tail_fw(small, wt, 1)
+    xs = torch.empty_like(small)
+    lib_fw, lib_inv = library_fw2d(small, wt), library_inv2d(quads_of(ys),
+                                                               wt)
+    floor_ms = P.med3(lambda v: v + 1, small, 20) * 1e3
+    for name, kern, lib, inv in (
+            ("tail_fw", lambda: tail2d.tail_fw(small, wt, 1, out=ys), lib_fw,
+             False),
+            ("tail_inv", lambda: tail2d.tail_inv(ys, wt, 1, out=xs), lib_inv,
+             True)):
+        rows[name].update(
+            device_us=device_us(kern), library_device_us=device_us(lib),
+            host_ms=P.enqueue_time(lambda _: kern(), small) * 1e3,
+            floor_ms=floor_ms,
+            cluster=tail2d.tail_plan(1, 128, 128, 1, wt, small.dtype,
+                                     inv).cluster)
+    emit({"phase": "timestails", "card": torch.cuda.get_device_name(0),
+          "b1_128_L1": {k: {f: rows[k][f] for f in (
+              "ms", "device_us", "library_ms", "library_device_us",
+              "host_ms", "floor_ms", "cluster")}
+              for k in ("tail_fw", "tail_inv")}, **tail_batch_times(dev, wt),
+          "cluster_sizes": tail_cluster_times(dev, wt)})
+
+
+def tail_cluster_times(dev, wt):
+    """C and D by device time with clusters of 8 and of 16 blocks per
+    image, on one image through one 128^2 level and on eight through four:
+    the measurement behind tail_plan's WIDE_BATCH."""
+    out = {}
+    rng = np.random.default_rng(8)
+    for B, L in ((1, 1), (8, 4)):
+        x = torch.from_numpy(rng.standard_normal((B, 128, 128)).astype(
+            np.float32)).to(dev)
+        y, z = torch.empty_like(x), torch.empty_like(x)
+        for P in (8, 16):
+            pf, pi = (tail2d.cluster_plan(P, 128, 128, L, wt, x.dtype, inv)
+                      for inv in (False, True))
+            fw = lambda: tail2d._launch_fw(
+                x, wt, L, y, torch.cuda.current_stream().cuda_stream, pf)
+            inv = lambda: tail2d._launch_inv(
+                y, wt, L, z, torch.cuda.current_stream().cuda_stream, pi)
+            row = {"fw_device_us": device_us(fw),
+                   "inv_device_us": device_us(inv)}
+            rel = max(rel_err(y, tail2d.tail_fw_plain(x, wt, L)),
+                      rel_err(z, tail2d.tail_inv_plain(y, wt, L)))
+            require(rel <= TOL[torch.float32], f"cluster of {P}: {rel:.3e}")
+            out[f"b{B}_L{L}_P{P}"] = row
+    return out
+
+
+def tail_batch_times(dev, wt):
+    """C and D on 264 images of 128^2 through 4 levels (two images per SM):
+    event and device time, host time, the cluster size."""
+    out = {}
+    xb = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (264, 128, 128)).astype(np.float32)).to(dev)
+    yb, xr = torch.empty_like(xb), torch.empty_like(xb)
+    for name, kern, plain, o in (
+            ("tail_fw", lambda: tail2d.tail_fw(xb, wt, 4, out=yb),
+             lambda: tail2d.tail_fw_plain(xb, wt, 4), yb),
+            ("tail_inv", lambda: tail2d.tail_inv(yb, wt, 4, out=xr),
+             lambda: tail2d.tail_inv_plain(yb, wt, 4), xr)):
+        ms = P.med3(lambda _: kern(), xb, 20) * 1e3
+        rel = rel_err(o, plain())
+        require(rel <= TOL[torch.float32], f"{name} B=264 L4: {rel:.3e}")
+        out[f"{name}_b264_L4"] = {
+            "ms": ms, "device_us": device_us(kern), "rel_err": rel,
+            "host_ms": P.enqueue_time(lambda _: kern(), xb) * 1e3,
+            "cluster": tail2d.tail_plan(264, 128, 128, 4, wt, xb.dtype,
+                                        name == "tail_inv").cluster}
+    return out
+
+
 def phase_times1d(xs):
     out = {"phase": "times1d"}
     for name, shape, (wname, kind), L, packet in PATHS1D:
@@ -1814,6 +2002,7 @@ def main():
     rows.update(phase_timesroutes(x))
     torch.cuda.empty_cache()
     phase_trace(x, xs)
+    tail_times(x, rows)
     src = {"level_fw": "level2d.cu", "level_inv": "level2d.cu",
            "tail_fw": "tail2d.cu", "tail_inv": "tail2d.cu",
            "level1d_fw": "level1d.cu", "level1d_inv": "level1d.cu",
@@ -1867,7 +2056,10 @@ def main():
          **{k: rows[name][k] for k in ("max_abs_err", "ms", "plain_ms",
                                         "bound_ms", "bound_by",
                                         "library_ms", "copy_bound_ms",
-                                        "library_calls") if k in rows[name]}}
+                                        "library_calls", "device_us",
+                                        "library_device_us", "host_ms",
+                                        "floor_ms", "cluster")
+            if k in rows[name]}}
         for name in src] + [
         {"name": name, "route": "cuda",
          "source": f"wavelets_tpu_torch/csrc/{src[kern]}",

@@ -2,7 +2,9 @@
 
 The plain versions are held against the TPU tail kernels
 (``tail2d.tail_fw`` / ``tail_inv``, in interpret mode) in float32 and
-against the JAX float64 engines.
+against the JAX float64 engines.  The launch plan of the CUDA kernels
+(``tail_plan``: cluster size, rows per block, shared bytes) is checked
+here on the CPU for every shape of chip_smoke.py.
 """
 
 import jax.numpy as jnp
@@ -97,3 +99,57 @@ def test_tail_input_and_output_may_alias():
     assert torch.equal(inplace, want)
     tail2d.tail_inv(inplace, wt, 2, out=inplace)
     assert (inplace - x).abs().max() <= 1e-12
+
+
+# chip_smoke.py's SHAPES: the plan of every shape that the tail takes
+_SHAPES = ((2, 2), (4, 8), (16, 16), (96, 160), (64, 128), (128, 128),
+           (2048, 2048))
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("B", [1, 3, 264])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+@pytest.mark.parametrize("shape", _SHAPES)
+def test_tail_plan(shape, dtype, B, inverse):
+    _, wt = _carriers("cdf97", "lifting")
+    m, n = shape
+    if not tail2d.tail_fits(m, n, wt, dtype, inverse):
+        # the level kernels take it: no block holds the array twice
+        size = 8 if dtype == torch.float64 else 4
+        assert 2 * m * n * size > 200_000
+        return
+    L = int(np.log2(min(m & -m, n & -n)))
+    plan = tail2d.tail_plan(B, m, n, L, wt, dtype, inverse)
+    P = plan.cluster
+    assert P & (P - 1) == 0 and 1 <= P <= (
+        tail2d.WIDE_CLUSTER if B <= tail2d.WIDE_BATCH else tail2d.MAX_CLUSTER)
+    assert B * P <= tail2d.SMS or P == 1
+    if B >= tail2d.SMS:
+        assert P == 1
+    assert plan.smem <= 232448
+    assert plan.taps == 16
+    assert 1 <= plan.split <= L and len(plan.rows) == L
+    for l, (rows, blocks) in enumerate(plan.rows, 1):
+        assert blocks == (P if l <= plan.split else 1)
+        owned = sorted(r for p in range(blocks)
+                       for r in range(p * rows, (p + 1) * rows))
+        assert owned == list(range(m >> l))      # each row exactly once
+        if blocks > 1:
+            assert rows >= tail2d.MIN_ROWS
+
+
+@pytest.mark.parametrize("name, kind, taps", [("haar", "lifting", 16),
+                                              ("cdf97", "lifting", 16),
+                                              ("db4", "filter", 16),
+                                              ("coif4", "filter", 32),
+                                              ("db10", "filter", 0)])
+def test_tail_plan_tap_templates(name, kind, taps):
+    """Tables up to 16 and 32 taps take the unrolled templates; a longer one
+    the one-block kernel with wrapped taps (one block, no cluster)."""
+    _, wt = _carriers(name, kind)
+    for inverse in (False, True):
+        plan = tail2d.tail_plan(1, 128, 128, 7, wt, torch.float32, inverse)
+        assert plan.taps == taps
+        assert plan.cluster == (16 if taps else 1)
+        assert plan.smem <= 232448

@@ -1,9 +1,11 @@
 // Helpers shared by the DWT kernels: storage <-> arithmetic conversion,
 // the periodic wrap, the band tables in shared memory, and the launch
-// status that every C entry point returns.
+// status that every C entry point returns (plain and cluster launches).
 #pragma once
 
 #include <cstdint>
+#include <mutex>
+#include <vector>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -59,6 +61,74 @@ inline int launch(K kernel, dim3 grid, dim3 block, size_t smem,
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   kernel<<<grid, block, smem, stream>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// launch() for a grid of thread-block clusters: `blocks` blocks in
+// clusters of `cluster` along x (a power of two; above 8 only where the
+// card allows a non-portable size).  A cluster that the card cannot place
+// (cudaOccupancyMaxActiveClusters finds none) is an error: the caller
+// raises, and nothing retries with another cluster size.
+// The attributes and the placement check run once per (device, kernel,
+// shared bytes, cluster, threads); later launches of the same
+// configuration reuse their status.
+struct ClusterFit {
+  int device;
+  const void* kernel;
+  size_t smem;
+  int cluster, threads, status;
+};
+
+template <typename... P, typename... Args>
+inline int launch_cluster(void (*kernel)(P...), int blocks, int threads,
+                          size_t smem, int cluster, cudaStream_t stream,
+                          Args... args) {
+  static std::mutex mu;
+  static std::vector<ClusterFit> fits;
+  if (smem > SMEM_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
+  cudaGetLastError();  // the status below is this launch's alone
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const void* key = reinterpret_cast<const void*>(kernel);
+  int status = -1;
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    for (const ClusterFit& f : fits)
+      if (f.device == device && f.kernel == key && f.smem == smem &&
+          f.cluster == cluster && f.threads == threads)
+        status = f.status;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (status < 0) {
+    // the most any launch may take, so that no configuration's launch
+    // lowers what another's needs
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(SMEM_MAX));
+    if (e == cudaSuccess && cluster > 8)
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    int fit = 0;
+    if (e == cudaSuccess) e = cudaOccupancyMaxActiveClusters(&fit, kernel, &cfg);
+    status = e != cudaSuccess ? static_cast<int>(e)
+             : fit < 1        ? static_cast<int>(cudaErrorLaunchOutOfResources)
+                              : 0;
+    std::lock_guard<std::mutex> lock(mu);
+    fits.push_back({device, key, smem, cluster, threads, status});
+  }
+  if (status != 0) return status;
+  e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 

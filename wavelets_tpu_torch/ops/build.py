@@ -58,13 +58,14 @@ _SIGNATURES = {
     # dmin, span, tile, stream
     "wtt_stage2_fw": [_I, _I, _I, _I, _P, _L, _L, _P, _P, _P, _P, _P, _I, _I,
                       _I, _I, _I, _P],
-    # dtype, B, m, n, L, x, xsb, xsr, y, ysb, ysr, offs, coefs, ns, nd, stream
+    # dtype, B, m, n, L, x, xsb, xsr, y, ysb, ysr, offs, coefs, ns, nd,
+    # plan[7], smem, stream
     "wtt_tail_fw": [_I, _I, _I, _I, _I, _P, _L, _L, _P, _L, _L, _P, _P, _I,
-                    _I, _P],
+                    _I, _P, _L, _P],
     # dtype, B, m, n, L, y, ysb, ysr, out, osb, osr, offs, coefs, counts[],
-    # stream
+    # plan[7], smem, stream
     "wtt_tail_inv": [_I, _I, _I, _I, _I, _P, _L, _L, _P, _L, _L, _P, _P, _P,
-                     _P],
+                     _P, _L, _P],
     # dtype, B, n, x, xs, s, ss, d, ds, offs, coefs, ns, nd, dmin, span,
     # stream
     "wtt_level1d_fw": [_I, _I, _I, _P, _L, _P, _L, _P, _L, _P, _P, _I, _I, _I,

@@ -14,6 +14,12 @@ given; any other input (a NumPy array, a list, a scalar) is placed on
 ``device``, or on the CUDA card when ``device`` is None.  Without a card
 that raises: pass ``device="cpu"`` to run on the CPU.
 
+``donate``: ``dwt``, ``idwt``, ``wpt``, ``iwpt``, ``modwt`` and ``imodwt``
+take ``donate=False`` as the JAX package does (there, ``donate=True``
+hands the input's buffer to XLA: the functional form of the reference's
+in-place ``dwt!``).  The port reuses no input buffer on any route, so
+``donate=True`` gives the same result and leaves the input as it was.
+
 Routing: a periodic boundary with float32, bfloat16 or float64 data goes to
 ops/pyramid2d.py for ``ndt == 2`` (on the route that :func:`routes2d`
 reads from the JAX package's switches at every call), to ops/dwt1d.py for ``ndt == 1``
@@ -170,15 +176,17 @@ def _transform(x, wt, L, ndt, fw):
 
 
 def dwt(x, wt: DiscreteWavelet, L: int | None = None, *,
-        ndt: int | None = None, device=None):
+        ndt: int | None = None, donate: bool = False, device=None):
     """Forward discrete wavelet transform.
 
     ``x`` — a tensor (or array-like) of rank 1, 2 or 3, or higher with the
     trailing ``ndt`` axes transformed and the leading axes batched.
     ``wt`` — a carrier from ``wt.wavelet``.  ``L`` — the number of levels
     (default: the most the shape allows).  ``device`` — where to run (see
-    the module docstring).  Returns the coefficients in the packed layout,
-    on that device (the input itself when ``L`` is 0, unless complex).
+    the module docstring).  ``donate`` is accepted for the JAX package's
+    signature and changes nothing (see the module docstring).  Returns the
+    coefficients in the packed layout, on that device (the input itself
+    when ``L`` is 0, unless complex).
     """
     x = _as_float(x, device)
     if x.is_complex():
@@ -191,8 +199,8 @@ def dwt(x, wt: DiscreteWavelet, L: int | None = None, *,
 
 
 def idwt(y, wt: DiscreteWavelet, L: int | None = None, *,
-         ndt: int | None = None, device=None):
-    """Inverse of :func:`dwt`."""
+         ndt: int | None = None, donate: bool = False, device=None):
+    """Inverse of :func:`dwt` (``donate`` as there)."""
     y = _as_float(y, device)
     if y.is_complex():
         return _parts(idwt, y, wt, L, ndt=ndt)
@@ -240,20 +248,20 @@ def _wpt_common(x, wt, tree, L, fw, device):
 
 
 def wpt(x, wt: DiscreteWavelet, tree=None, L: int | None = None, *,
-        device=None):
+        donate: bool = False, device=None):
     """Wavelet packet transform along the last axis.
 
     ``tree`` is a bool heap vector (see utils.maketree); if omitted, a full
     L-level tree is used (default L: the most the length allows).  An
-    integer third positional is taken as ``L``.  ``device`` as for
-    :func:`dwt`.
+    integer third positional is taken as ``L``.  ``donate`` and ``device``
+    as for :func:`dwt`.
     """
     tree, L = _tree_or_levels(tree, L)
     return _wpt_common(x, wt, tree, L, True, device)
 
 
 def iwpt(y, wt: DiscreteWavelet, tree=None, L: int | None = None, *,
-         device=None):
+         donate: bool = False, device=None):
     """Inverse of :func:`wpt` (also accepts an integer as ``L``)."""
     tree, L = _tree_or_levels(tree, L)
     return _wpt_common(y, wt, tree, L, False, device)
@@ -261,11 +269,13 @@ def iwpt(y, wt: DiscreteWavelet, tree=None, L: int | None = None, *,
 
 # --- MODWT ------------------------------------------------------------------
 
-def modwt(x, wt: OrthoFilter, L: int | None = None, *, device=None):
+def modwt(x, wt: OrthoFilter, L: int | None = None, *,
+          donate: bool = False, device=None):
     """Maximal-overlap DWT along the last axis -> ``(..., N, L+1)``: detail
     level j in column j-1, the scaling band in column L.  Any length N
     works; ``L`` defaults to ``maxmodwttransformlevels(N)``.  Leading axes
-    flatten onto the kernels' batch.  ``device`` as for :func:`dwt`."""
+    flatten onto the kernels' batch.  ``donate`` and ``device`` as for
+    :func:`dwt`."""
     x = _as_float(x, device)
     if x.is_complex():
         return _parts(modwt, x, wt, L)
@@ -279,8 +289,9 @@ def modwt(x, wt: OrthoFilter, L: int | None = None, *, device=None):
     return modwt1d.modwt(flat, wt, L).reshape(*x.shape, L + 1)
 
 
-def imodwt(xw, wt: OrthoFilter, *, device=None):
-    """Inverse MODWT of an ``(..., N, L+1)`` coefficient array."""
+def imodwt(xw, wt: OrthoFilter, *, donate: bool = False, device=None):
+    """Inverse MODWT of an ``(..., N, L+1)`` coefficient array (``donate``
+    as for :func:`dwt`)."""
     xw = _as_float(xw, device)
     if xw.is_complex():
         return _parts(imodwt, xw, wt)
