@@ -28,9 +28,16 @@ exits non-zero:
                   gaps between rows and batch items, R = 2, narrow C and
                   the 3-D driver's permuted layouts.
   2d. kernelsmodwt -- the MODWT kernels (forward K, inverse M) the same
-                  way for three filter wavelets, on (B, N) rows with
-                  N = 5 to 8192, N = 1000, strided columns and a tap reach
-                  above N.
+                  way for four filter wavelets (db4, haar, sym6, coif8: the
+                  8-, 16- and 32-tap templates),
+                  on (B, N) rows with N = 5 to 8192, N = 1000, strided
+                  columns and a tap reach above N; and the all-levels
+                  kernel (modwt_fw_levels) against its plain version and,
+                  bit for bit, against chains of K launches in f32, f64
+                  and bf16: N = 5, 64, 1000, 8192, reaches of several
+                  times N, L from 1 to the most the plan fits, B = 1, 3,
+                  64 and 512, every cluster size the plan picks (1-16),
+                  a strided input; rows beyond the plan must be refused.
   2e. kernelshalo -- kernels I and J in halo mode: with halos equal to the
                   wrapped rows they must equal the periodic kernels bit for
                   bit; with random halos (taller than the reach, strided)
@@ -56,7 +63,9 @@ exits non-zero:
                   trip, the plain float64 version, and a float64 round trip
                   at 128^3.
   3d. mainmodwt -- modwt/imodwt of (512, 8192) float32 rows, db4, 6 levels
-                  (K and M, one launch per level), checked the same way.
+                  (one modwt_fw_levels launch, one M per level), checked
+                  the same way; and of (8, 2^20) rows, too long for the
+                  plan (one K and one M per level).
   3e. mainsharded -- parallel.dwt2/idwt2 of the 16384^2 float32 image,
                   cdf97 lifting, 8 levels, over Mesh([cuda:0] * 4): the
                   launch table (E and I in halo mode per shard per level,
@@ -84,9 +93,11 @@ exits non-zero:
                   one), with the host's time to enqueue each call, and the
                   1-D kernels.
   4c. times3d, timesmodwt -- the same for the 3-D and MODWT paths (f32 and
-                  bf16), and kernels I, J, K and M; for K also the
-                  contiguous store and the permuted copy that the column
-                  store replaces.
+                  bf16), and kernels I, J, K, M and modwt_fw_levels (beside
+                  its plain version, the chain of K launches it replaces,
+                  and L dilated conv1d calls plus a torch.stack); for K
+                  also the contiguous store and the permuted copy that the
+                  column store replaces.
   4d. timessharded -- the sharded forward and inverse on 4 shards and on 1,
                   the TI denoise (one spin at a time) and the best-basis
                   search (bench.py's inputs), with host times; I and J in
@@ -108,6 +119,10 @@ exits non-zero:
                   device: kernel and library call by profiler time, host
                   time, the launch floor and the cluster size; at B = 264,
                   128^2, L4; and with clusters of 8 and 16 blocks.
+  5c. timesprofiled -- by profiler time: kernel B at 16384^2 level 1, and
+                  modwt_fw_levels at (512, 8192) db4 L6 (f32 and bf16, and
+                  f32 with each cluster size that fits) beside the chain of
+                  K launches and the library calls.
 
 Then the run's wall time, nvidia-smi's line again, the per-kernel JSON line
 (a row per kernel, and one per TPU kernel that a route of 3g maps onto one
@@ -174,9 +189,18 @@ ROUTES1D = {
 SHAPES_A0 = ((1, 2, 1), (3, 2, 5), (2, 8, 3), (5, 4, 40), (3, 96, 160),
              (64, 64, 64), (2, 2048, 512))
 # MODWT rows (B, N, level j): a reach (taps - 1) 2^(j-1) above N, N = 1000
-WAVELETS_MODWT = (("db4", "filter"), ("haar", "filter"), ("sym6", "filter"))
+WAVELETS_MODWT = (("db4", "filter"), ("haar", "filter"), ("sym6", "filter"),
+                  ("coif8", "filter"))
 ROWS_MODWT = ((3, 5, 2), (3, 8, 3), (3, 1000, 1), (3, 1000, 9),
               (2, 8192, 6), (64, 4096, 1))
+# the all-levels kernel: (B, N, L); N = 64 at L6 and N = 1000 at L9 reach
+# several times round the row; clusters of 1 to 16 blocks; (3, 2^17, 13)
+# and (8, 2^20, 6) do not fit the plan
+ROWS_MODWT_LEVELS = ((1, 5, 1), (3, 5, 2), (1, 64, 1), (3, 64, 6),
+                     (1, 1000, 9), (3, 1000, 5), (1, 8192, 6), (3, 8192, 1),
+                     (64, 4096, 3), (512, 8192, 6))
+ROWS_MODWT_UNPLANNED = ((3, 1 << 17, 13), (8, 1 << 20, 6))
+MODWT_LONG, MODWT_LONG_LEVELS = (8, 1 << 20), 6
 SIZE3D, LEVELS3D = 256, 3
 MODWT_SHAPE, MODWT_LEVELS = (512, 8192), 6
 # published H100 SXM rates (NVIDIA's data sheet): device memory, and FP32
@@ -549,6 +573,24 @@ def library_modwt_inv(v1, w1, wt, j):
     return lambda: F.conv1d(inp, wgt, dilation=dil)
 
 
+def library_modwt_levels(x, wt, L):
+    """L dilated conv1d calls, one per level (each input the plain
+    version's scaling band of the level before, wrapped beforehand), and
+    the stack of their details and the last scaling band into (B, N,
+    L+1)."""
+    g, h = modwt_ops.modwt_filter_pair(wt)
+    v, calls = x, []
+    for j in range(1, L + 1):
+        calls.append(library_modwt_fw(v, wt, j))
+        v = modwt_ops.modwt_step(v, j, h, g)[0]
+
+    def call():
+        outs = [c() for c in calls]
+        return torch.stack([o[:, 1] for o in outs] + [outs[-1][:, 0]], dim=-1)
+
+    return call
+
+
 # --- phases ------------------------------------------------------------------
 
 def phase_device():
@@ -827,10 +869,78 @@ def phase_kernelsmodwt(dev):
                 check_all("kernelsmodwt", errs, (wname, B, N, j), dt, tol,
                           worst)
                 cases += 1
+    chain, plans = check_modwt_levels(dev, rng, worst)
     emit({"phase": "kernelsmodwt", "cases": cases,
           "rows": [list(r) for r in ROWS_MODWT],
+          "levels_rows": [list(r) for r in ROWS_MODWT_LEVELS],
+          "levels_bit_equal_to_chain": {k: all(v) for k, v in chain.items()},
+          "levels_chain_cases": {k: len(v) for k, v in chain.items()},
+          "levels_cluster_sizes": sorted({p[-1] for p in plans}),
           "tolerance": {str(k)[6:]: v for k, v in TOL.items()},
           "worst_rel_err": worst})
+
+
+def modwt_chain(x, wt, L):
+    """L launches of kernel K into the (B, N, L+1) layout, each on the
+    scaling band of the one before: what modwt_fw_levels computes in one
+    launch."""
+    B, N = x.shape
+    out = torch.empty((B, N, L + 1), dtype=x.dtype, device=x.device)
+    v = x
+    for j in range(1, L + 1):
+        v1 = out[..., L] if j == L else torch.empty((B, N), dtype=x.dtype,
+                                                    device=x.device)
+        modwt1d.modwt_fw(v, wt, j, v1, out[..., j - 1])
+        v = v1
+    return out
+
+
+def check_modwt_levels(dev, rng, worst):
+    """modwt_fw_levels on ROWS_MODWT_LEVELS for every wavelet and dtype:
+    against its plain version, and whether it equals the chain of K
+    launches bit for bit (required in all three dtypes); every cluster
+    size 1-16 must occur; the rows of ROWS_MODWT_UNPLANNED must lie beyond
+    the plan, and the wrapper must refuse them."""
+    chain, plans = {}, set()
+    for (wname, kind) in WAVELETS_MODWT:
+        wt = wavelet(wname, kind)
+        nt = len(modwt_ops.modwt_filter_pair(wt)[0])
+        for dt, tol in TOL.items():
+            key = str(dt)[6:]
+            for B, N, L in ROWS_MODWT_LEVELS:
+                plan = modwt1d.modwt_plan(N, L, nt, dt, B)
+                require(plan.fits, f"modwt_plan fits {(B, N, L)} {wname} {dt}")
+                plans.add((wname, B, N, L, key, plan.cluster))
+                x = torch.from_numpy(rng.standard_normal((B, N))).to(dev).to(
+                    dt)
+                got = launched("modwt_fw_levels",
+                               lambda: modwt1d.modwt_fw_levels(x, wt, L))
+                check_all("kernelsmodwt", {
+                    "modwt_fw_levels": rel_err(
+                        got, modwt1d.modwt_fw_levels_plain(x, wt, L))},
+                    (wname, B, N, L), dt, tol, worst)
+                chain.setdefault(key, []).append(
+                    torch.equal(got, modwt_chain(x, wt, L)))
+            for B, N, L in ROWS_MODWT_UNPLANNED:
+                require(not modwt1d.modwt_plan(N, L, nt, dt, B).fits,
+                        f"{(B, N, L)} {wname} {dt} lies beyond the plan")
+        # a strided input: every other sample of wider rows
+        xv = torch.from_numpy(rng.standard_normal((3, 2000))).to(dev).float()
+        got = modwt1d.modwt_fw_levels(xv[:, ::2], wt, 5)
+        chain["float32"].append(torch.equal(got, modwt_chain(xv[:, ::2], wt,
+                                                             5)))
+    try:
+        modwt1d.modwt_fw_levels(torch.zeros((3, 1 << 17), device=dev), wt, 13)
+        refused = False
+    except ValueError:
+        refused = True
+    require(refused, "modwt_fw_levels refuses a row beyond its plan")
+    for key in ("float32", "float64", "bfloat16"):
+        require(all(chain[key]), f"modwt_fw_levels bit-equal to chains of K "
+                f"launches: {key}")
+    sizes = sorted({p[-1] for p in plans})
+    require(sizes == [1, 2, 4, 8, 16], f"cluster sizes {sizes}")
+    return chain, plans
 
 
 def halo_height(wt):
@@ -1108,10 +1218,10 @@ def phase_main3d(x3):
     return launches
 
 
-def phase_mainmodwt(xm):
+def phase_mainmodwt(xm, xlong):
     wt = wavelet("db4", "filter")
     L = MODWT_LEVELS
-    route = {"modwt_fw": L, "modwt_inv": L}
+    route = {"modwt_fw_levels": 1, "modwt_inv": L}
     W, launches, wall, rt = run_route(
         "modwt", lambda v: w.modwt(v, wt, L), lambda v: w.imodwt(v, wt), xm,
         route)
@@ -1133,6 +1243,24 @@ def phase_mainmodwt(xm):
           "f32_vs_plain_f64_rel_err": e32,
           "f64_roundtrip_max_abs_err": rt64,
           "f64_vs_torch_engine_rel_err": es})
+    # rows too long for the plan: one K launch per level
+    Ll = MODWT_LONG_LEVELS
+    require(not modwt1d.modwt_plan(xlong.shape[1], Ll, len(wt.qmf),
+                                   xlong.dtype, xlong.shape[0]).fits,
+            "the long rows lie beyond the plan")
+    long_route = {"modwt_fw": Ll, "modwt_inv": Ll}
+    Wl, long_launches, wall_l, rt_l = run_route(
+        "modwt_long", lambda v: w.modwt(v, wt, Ll), lambda v: w.imodwt(v, wt),
+        xlong, long_route)
+    require(Wl.shape == (*xlong.shape, Ll + 1), "long modwt output shape")
+    el = rel_err(Wl, modwt1d.modwt(xlong.double(), wt, Ll, plain=True))
+    require(el <= 1e-3, f"long modwt f32 vs plain f64 {el:.3e} <= 1e-3")
+    del Wl
+    emit({"phase": "mainmodwt", "shape": list(xlong.shape), "levels": Ll,
+          "dtype": "float32", "launches": long_route,
+          "wall_s_first_call_pair": wall_l, "roundtrip_max_abs_err": rt_l,
+          "f32_vs_plain_f64_rel_err": el})
+    launches["modwt_fw"] = long_launches["modwt_fw"]
     return launches
 
 
@@ -1462,17 +1590,25 @@ def phase_times(dev, x):
 def device_us(fn, calls=20):
     """Device microseconds per call of ``fn()`` from torch.profiler: the
     summed duration of its device events over ``calls`` calls, divided by
-    ``calls`` (host overhead between launches does not count)."""
+    ``calls`` (host overhead between launches does not count).  A trace
+    that comes back without device events is taken again, with twice the
+    calls, up to three times in all, before the check fails: the profiler
+    returned such traces of short sessions (20 calls of a kernel or cuDNN
+    call of a few microseconds) in two of three otherwise equal runs."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    ev = [e for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA]
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+        if ev:
+            break
+        calls *= 2
     require(ev, "the profiler recorded device events")
     return sum(e.time_range.end - e.time_range.start for e in ev) / calls
 
@@ -1509,6 +1645,53 @@ def tail_times(x, rows):
               "host_ms", "floor_ms", "cluster")}
               for k in ("tail_fw", "tail_inv")}, **tail_batch_times(dev, wt),
           "cluster_sizes": tail_cluster_times(dev, wt)})
+
+
+def profiled_times(x, xs, rows):
+    """Phase 5c, after the trace: kernel B at 16384^2 level 1 by profiler
+    time, and modwt_fw_levels at (512, 8192) db4 L6 beside the chain of K
+    launches and the library calls, in f32 and bf16, and in f32 with every
+    cluster size that fits (the plan takes one)."""
+    cdf, db4 = w.wavelet(w.wt.cdf97, "lifting"), wavelet("db4", "filter")
+    xb = x[None]
+    ll = torch.empty((1, SIZE // 2, SIZE // 2), dtype=x.dtype, device=x.device)
+    planes = (ll, *level2d.detail_planes(torch.empty_like(xb), 1))
+    level2d.level_fw(xb, cdf, planes)
+    xr = torch.empty_like(xb)
+    rows["level_inv"]["device_us"] = device_us(
+        lambda: level2d.level_inv(*planes, cdf, out=xr))
+    rows["level_fw"]["device_us"] = device_us(
+        lambda: level2d.level_fw(xb, cdf, planes))
+    del ll, planes, xr
+    xm, L = xs[MODWT_SHAPE], MODWT_LEVELS
+    B, N = xm.shape
+    W = modwt1d.modwt_fw_levels(xm, db4, L)
+    r = rows["modwt_fw_levels"]
+    r["device_us"] = device_us(lambda: modwt1d.modwt_fw_levels(xm, db4, L, W))
+    r["chain_device_us"] = device_us(lambda: modwt_chain(xm, db4, L))
+    r["library_device_us"] = device_us(library_modwt_levels(xm, db4, L))
+    xh = xm.to(torch.bfloat16)
+    Wh = modwt1d.modwt_fw_levels(xh, db4, L)
+    bf16_us = device_us(lambda: modwt1d.modwt_fw_levels(xh, db4, L, Wh))
+    sizes, Wp = {}, torch.empty_like(W)
+    for Pc in (1, 2, 4, 8, 16):
+        plan = modwt1d.cluster_plan(Pc, N, L, len(db4.qmf), xm.dtype)
+        if plan is None:
+            continue
+        fn = lambda: modwt1d._launch_levels(        # noqa: E731
+            xm, db4, L, Wp, torch.cuda.current_stream().cuda_stream, plan)
+        fn()
+        torch.cuda.synchronize()
+        require(torch.equal(Wp, W), f"modwt_fw_levels with a cluster of {Pc}")
+        sizes[f"P{Pc}"] = device_us(fn)
+    emit({"phase": "timesprofiled", "card": torch.cuda.get_device_name(0),
+          "level_inv_16384_level1_device_us": rows["level_inv"]["device_us"],
+          "level_fw_16384_level1_device_us": rows["level_fw"]["device_us"],
+          "modwt_fw_levels_512x8192_L6": {
+              "f32_device_us": r["device_us"], "bf16_device_us": bf16_us,
+              "chain_device_us": r["chain_device_us"],
+              "library_device_us": r["library_device_us"],
+              "cluster": r["cluster"], "cluster_sizes_device_us": sizes}})
 
 
 def tail_cluster_times(dev, wt):
@@ -1707,12 +1890,36 @@ def phase_timesmodwt(xm):
     out["f32"]["modwt_fw_level1_column_ms"] = rows["modwt_fw"]["ms"]
     out["f32"]["permuted_copy_ms"] = P.med3(
         lambda _: W.copy_(planes.permute(1, 2, 0)), xm, 20) * 1e3
+    # the all-levels kernel beside its plain version, the chain of K
+    # launches it replaces, and L dilated conv1d calls plus the stack into
+    # (B, N, L+1)
+    Wf = torch.empty_like(W)
+    rows["modwt_fw_levels"] = kernel_row(
+        "modwt_fw_levels", lambda: modwt1d.modwt_fw_levels(xm, wt, L, Wf),
+        lambda: modwt1d.modwt_fw_levels_plain(xm, wt, L, Wf), (Wf,),
+        TOL[xm.dtype], library_modwt_levels(xm, wt, L), lambda o: [o])
+    rows["modwt_fw_levels"].update(
+        library_calls=L + 1, chain_ms=P.med3(
+            lambda _: modwt_chain(xm, wt, L), xm, 10) * 1e3,
+        cluster=modwt1d.modwt_plan(xm.shape[1], L, len(wt.qmf), xm.dtype,
+                                   xm.shape[0]).cluster)
+    xb = xm.to(torch.bfloat16)
+    Wb = torch.empty(W.shape, dtype=xb.dtype, device=xb.device)
+    out["bf16"]["modwt_fw_levels_ms"] = P.med3(
+        lambda _: modwt1d.modwt_fw_levels(xb, wt, L, Wb), xb, 20) * 1e3
+    out["f32"]["modwt_fw_levels_ms"] = rows["modwt_fw_levels"]["ms"]
+    out["f32"]["modwt_fw_chain_ms"] = rows["modwt_fw_levels"]["chain_ms"]
     emit(out)
     nbytes = 3 * xm.numel() * 4
     for name in ("modwt_fw", "modwt_inv"):
         rows[name]["bound_ms"], rows[name]["bound_by"] = bound(
             nbytes, 4 * len(wt.qmf) * xm.numel())
         rows[name]["copy_bound_ms"] = out["f32"]["copy_ms"] * 1.5
+    # the transform's least traffic: x read once, L+1 planes written once
+    r = rows["modwt_fw_levels"]
+    r["bound_ms"], r["bound_by"] = bound(
+        (L + 2) * xm.numel() * 4, 4 * len(wt.qmf) * L * xm.numel())
+    r["copy_bound_ms"] = out["f32"]["copy_ms"] * (L + 2) / 2
     return rows
 
 
@@ -1976,7 +2183,9 @@ def main():
                      if k.endswith(("1d_fw", "1d_inv"))})
     launches.update({k: v for k, v in phase_main3d(xs[(SIZE3D,) * 3]).items()
                      if k in ("axis0_fw", "axis0_inv")})
-    launches.update({k: v for k, v in phase_mainmodwt(xs[MODWT_SHAPE]).items()
+    xlong = xs[(1 << 24,)].view(-1, MODWT_LONG[1])[:MODWT_LONG[0]]
+    launches.update({k: v for k, v in phase_mainmodwt(xs[MODWT_SHAPE],
+                                                      xlong).items()
                      if k.startswith("modwt")})
     xsig = signal_image(x)
     launches.update({k: v for k, v in phase_mainsharded(x, xsig).items()
@@ -2003,12 +2212,14 @@ def main():
     torch.cuda.empty_cache()
     phase_trace(x, xs)
     tail_times(x, rows)
+    profiled_times(x, xs, rows)
     src = {"level_fw": "level2d.cu", "level_inv": "level2d.cu",
            "tail_fw": "tail2d.cu", "tail_inv": "tail2d.cu",
            "level1d_fw": "level1d.cu", "level1d_inv": "level1d.cu",
            "tail1d_fw": "tail1d.cu", "tail1d_inv": "tail1d.cu",
            "axis0_fw": "axis0.cu", "axis0_inv": "axis0.cu",
            "modwt_fw": "modwt1d.cu", "modwt_inv": "modwt1d.cu",
+           "modwt_fw_levels": "modwt1d.cu",
            "axis0_fw_halo": "axis0.cu", "axis0_inv_halo": "axis0.cu",
            "stage2_fw": "stage2d.cu"}
     replaces = {"level_fw": "wavelets_tpu/ops/pallas/mxu2d.py:1610",
@@ -2023,6 +2234,7 @@ def main():
                 "axis0_inv": "wavelets_tpu/ops/pallas/axis0.py:214",
                 "modwt_fw": "wavelets_tpu/ops/pallas/modwt1d.py:85",
                 "modwt_inv": "wavelets_tpu/ops/pallas/modwt1d.py:93",
+                "modwt_fw_levels": "wavelets_tpu/ops/pallas/modwt1d.py:85",
                 "axis0_fw_halo": "wavelets_tpu/ops/pallas/axis0.py:318",
                 "axis0_inv_halo": "wavelets_tpu/ops/pallas/axis0.py:417",
                 "stage2_fw": "wavelets_tpu/ops/pallas/stage2d.py:154"}
@@ -2058,7 +2270,8 @@ def main():
                                         "library_ms", "copy_bound_ms",
                                         "library_calls", "device_us",
                                         "library_device_us", "host_ms",
-                                        "floor_ms", "cluster")
+                                        "floor_ms", "cluster", "chain_ms",
+                                        "chain_device_us")
             if k in rows[name]}}
         for name in src] + [
         {"name": name, "route": "cuda",

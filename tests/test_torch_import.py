@@ -108,6 +108,7 @@ def test_build_key_follows_sources():
                                       "wtt_axis0_fw_halo",
                                       "wtt_axis0_inv_halo",
                                       "wtt_modwt_fw", "wtt_modwt_inv",
+                                      "wtt_modwt_fw_levels",
                                       "wtt_stage2_fw"}
     key = build._key()
     assert len(key) == 16 and key == build._key()
@@ -142,8 +143,8 @@ def _calls(name):
                                   "tail_inv", "level1d_fw", "level1d_inv",
                                   "tail1d_fw", "tail1d_inv", "axis0_fw",
                                   "axis0_inv", "modwt_fw", "modwt_inv",
-                                  "axis0_fw_halo", "axis0_inv_halo",
-                                  "stage2_fw"])
+                                  "modwt_fw_levels", "axis0_fw_halo",
+                                  "axis0_inv_halo", "stage2_fw"])
 def test_cpu_tensor_takes_plain_version(name):
     wt = wtt.wavelet(wtt.wt.cdf97, "lifting")
     x = torch.as_tensor(np.random.default_rng(5).standard_normal((2, 16, 8)))
@@ -164,6 +165,7 @@ def test_cpu_tensor_takes_plain_version(name):
         "axis0_inv": lambda: axis0.axis0_inv(x, x.clone(), wt),
         "modwt_fw": lambda: modwt1d.modwt_fw(rows, db4, 2),
         "modwt_inv": lambda: modwt1d.modwt_inv(rows, rows.clone(), db4, 2),
+        "modwt_fw_levels": lambda: modwt1d.modwt_fw_levels(rows, db4, 2),
         "axis0_fw_halo": lambda: axis0.axis0_fw(x, wt, above=x[:, :4],
                                                 below=x[:, :3]),
         "axis0_inv_halo": lambda: axis0.axis0_inv(
@@ -346,10 +348,11 @@ def test_sol_fraction_of_a_3d_pyramid(L, geometric):
 
 
 def test_sol_fraction_of_the_modwt():
-    """Per level one plane read and two written (or two read, one written):
-    6 levels move 18 planes, which sol_fraction counts as 2 x 9."""
+    """The transform's least traffic: one plane read and L + 1 written (or
+    L + 1 read, one written): 6 levels move 8 planes, which sol_fraction
+    counts as 2 x 4."""
     x = torch.zeros((512, 8192))
-    floor_s = 18 * x.numel() * 4 / 1e12
+    floor_s = 8 * x.numel() * 4 / 1e12
     assert profiling.sol_fraction(floor_s, x, 1e12,
                                   profiling.geometric_modwt(6)) == \
         pytest.approx(1)

@@ -236,3 +236,25 @@ def test_orientation_lh_is_row_scaling_column_detail():
     ll, lh, hl, hh = level2d.level_fw(x, wt)
     assert lh.abs().max() > 0.1
     assert hl.abs().max() < 1e-12 and hh.abs().max() < 1e-12
+
+
+@pytest.mark.parametrize("name, kind, window", [
+    ("haar", "lifting", 8), ("cdf97", "lifting", 8), ("db4", "filter", 8),
+    ("sym6", "filter", 16), ("coif4", "filter", 16), ("db8", "filter", 16),
+    ("db10", "filter", 0), ("coif8", "filter", 0)])
+def test_inverse_window_and_shared_bytes(name, kind, window):
+    """Kernel B's form for a wavelet: the tiled kernel's window (8 or 16
+    offsets, above the synthesis bands' span) or 0, the first form, for a
+    span of 16 or more; and the shared bytes of one block, within the
+    card's 227 KB in every dtype."""
+    wt = T.wavelet(T.wt.ALL_CLASSES[name], kind)
+    offs = np.concatenate([d for d, _ in level2d.synthesis_bands(wt)])
+    span = int(offs.max() - offs.min())
+    assert level2d.inv_window(wt) == window
+    assert window == 0 or span < window
+    for dtype in (torch.float32, torch.bfloat16, torch.float64):
+        smem = level2d.inv_smem(wt, dtype)
+        assert 0 < smem <= level2d.SMEM_LIMIT
+        if window == 0:
+            table = level2d.band_table(wt, True, dtype, torch.device("cpu"))
+            assert smem == level2d._smem(table, 32 + span, 64)

@@ -117,15 +117,114 @@ def test_level_zero_inverse_is_the_scaling_column():
 
 
 def test_route_is_one_launch_per_level():
-    """One K per level forward, one M per level inverse; on a CPU tensor
-    each takes its plain version and no kernel is launched."""
-    _, wt = _carriers("db4")
+    """Rows that the plan fits take one modwt_fw_levels forward, rows it
+    does not (here a filter of 41 taps, more than the kernel's 32) one K
+    per level; the inverse one M per level.  On a CPU tensor each takes
+    its plain version and no kernel is launched."""
     x = torch.zeros((4, 64))
-    launches = dict(modwt1d.LAUNCHES)
-    before = dict(modwt1d.PLAIN_CALLS)
-    T.imodwt(T.modwt(x, wt, 5), wt)
-    assert modwt1d.LAUNCHES == launches
-    assert modwt1d.PLAIN_CALLS == {k: v + 5 for k, v in before.items()}
+    for name, fw in (("db4", {"modwt_fw_levels": 1, "modwt_fw": 0}),
+                     ("batt4", {"modwt_fw_levels": 0, "modwt_fw": 5})):
+        _, wt = _carriers(name)
+        assert modwt1d.modwt_plan(64, 5, len(wt.qmf), x.dtype, 4).fits == \
+            bool(fw["modwt_fw_levels"])
+        launches = dict(modwt1d.LAUNCHES)
+        before = dict(modwt1d.PLAIN_CALLS)
+        T.imodwt(T.modwt(x, wt, 5), wt)
+        assert modwt1d.LAUNCHES == launches
+        want = {k: before[k] + n for k, n in dict(fw, modwt_inv=5).items()}
+        assert modwt1d.PLAIN_CALLS == want
+
+
+# chip_smoke.py's rows of the all-levels kernel, (N, L)
+_PLAN_ROWS = ((5, 1), (5, 2), (64, 1), (64, 6), (1000, 5), (1000, 9),
+              (4096, 3), (8192, 1), (8192, 6))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+@pytest.mark.parametrize("B", [1, 3, 512])
+@pytest.mark.parametrize("taps", [2, 8, 12, 24])
+def test_modwt_plan(taps, B, dtype):
+    """The plan of every row chip_smoke.py drives: a power-of-two cluster
+    of at most 16 blocks (8 beyond three rows) that covers the row with
+    MIN_SPAN samples a block or more, level L's reach as the halo, a tap
+    template at least the filter, and the layout's shared bytes within
+    one block's 227 KB."""
+    size = torch.empty((), dtype=dtype).element_size()
+    for N, L in _PLAN_ROWS:
+        plan = modwt1d.modwt_plan(N, L, taps, dtype, B)
+        assert plan.fits
+        assert plan.cluster in ((1, 2, 4, 8, 16) if B <= 3 else (1, 2, 4, 8))
+        assert plan.span * plan.cluster >= N > plan.span * (plan.cluster - 1)
+        assert plan.cluster == 1 or plan.span >= modwt1d.MIN_SPAN
+        assert plan.halo == (taps - 1) * 2 ** (L - 1)
+        assert plan.taps == min(k for k in modwt1d.TAP_TEMPLATES if k >= taps)
+        assert plan.smem == modwt1d._layout_bytes(N, L, plan.cluster,
+                                                  plan.halo, size)
+        assert plan.smem <= 227 * 1024
+        assert plan == modwt1d.cluster_plan(plan.cluster, N, L, taps, dtype)
+
+
+@pytest.mark.parametrize("dtype, cluster", [(torch.float32, 4),
+                                            (torch.bfloat16, 2),
+                                            (torch.float64, 8)])
+def test_modwt_plan_of_the_main_path(dtype, cluster):
+    """(512, 8192) db4 L6: the smallest cluster whose blocks fit two to an
+    SM; one row alone spreads over 16 blocks."""
+    assert modwt1d.modwt_plan(8192, 6, 8, dtype, 512).cluster == cluster
+    assert modwt1d.modwt_plan(8192, 6, 8, dtype, 1).cluster == 16
+
+
+@pytest.mark.parametrize("N, L, taps", [(1 << 20, 6, 8), (1 << 17, 13, 8),
+                                        (64, 5, 41), (8192, 13, 24)])
+def test_rows_beyond_the_plan_take_one_K_per_level(N, L, taps):
+    """Rows no cluster holds (or filters of more than 32 taps) do not fit,
+    in any dtype; the wrapper refuses them, and modwt runs them one level
+    at a time."""
+    for dtype in (torch.float32, torch.bfloat16, torch.float64):
+        if (N, L, dtype) == (8192, 13, torch.bfloat16):
+            continue            # 24 taps at L13 fit 16 bfloat16 blocks
+        assert not modwt1d.modwt_plan(N, L, taps, dtype, 8).fits
+    if taps == 41:
+        _, wt = _carriers("batt4")
+        with pytest.raises(ValueError, match="modwt_plan"):
+            modwt1d.modwt_fw_levels(torch.zeros((8, N)), wt, L)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+@pytest.mark.parametrize("name, N, L", [("db4", 64, 6), ("sym6", 1000, 9),
+                                        ("coif8", 96, 5), ("haar", 5, 2)])
+def test_levels_plain_is_the_chain_of_K(name, N, L, dtype):
+    """modwt_fw_levels' plain version equals the chain of modwt_fw_plain
+    levels into the (B, N, L+1) layout bit for bit (each scaling band
+    rounded to the storage type between levels), and so does the public
+    modwt; a strided input gives the same numbers."""
+    _, wt = _carriers(name)
+    x = torch.from_numpy(np.random.default_rng(78).standard_normal(
+        (3, 2 * N))).to(dtype)[:, ::2]
+    out = torch.full((3, N, L + 1), float("nan"), dtype=dtype)
+    v = x
+    for j in range(1, L + 1):
+        v1 = out[..., L] if j == L else torch.empty((3, N), dtype=dtype)
+        modwt1d.modwt_fw_plain(v, wt, j, v1, out[..., j - 1])
+        v = v1
+    got = modwt1d.modwt_fw_levels_plain(x, wt, L)
+    assert torch.equal(got, out)
+    assert torch.equal(modwt1d.modwt_fw_levels(x.contiguous(), wt, L), out)
+    assert torch.equal(T.modwt(x, wt, L), out)
+
+
+def test_levels_wrapper_checks_its_output():
+    _, wt = _carriers("db4")
+    x = torch.zeros((2, 16))
+    with pytest.raises(ValueError):
+        modwt1d.modwt_fw_levels(x, wt, 2, torch.zeros((2, 16, 4)))   # L+1
+    with pytest.raises(ValueError):                  # rows not contiguous
+        modwt1d.modwt_fw_levels(x, wt, 2,
+                                torch.zeros((2, 3, 16)).transpose(1, 2))
+    with pytest.raises(ValueError):
+        modwt1d.modwt_fw_levels(x, wt, 5)            # 2^5 > 16
 
 
 def test_columns_are_written_in_place():

@@ -64,41 +64,76 @@ inline int launch(K kernel, dim3 grid, dim3 block, size_t smem,
   return static_cast<int>(cudaGetLastError());
 }
 
-// launch() for a grid of thread-block clusters: `blocks` blocks in
-// clusters of `cluster` along x (a power of two; above 8 only where the
-// card allows a non-portable size).  A cluster that the card cannot place
-// (cudaOccupancyMaxActiveClusters finds none) is an error: the caller
-// raises, and nothing retries with another cluster size.
-// The attributes and the placement check run once per (device, kernel,
-// shared bytes, cluster, threads); later launches of the same
-// configuration reuse their status.
+// How many clusters of `cluster` blocks (a power of two; above 8 only
+// where the card allows a non-portable size) of `threads` threads and
+// `smem` shared bytes the card holds at once (cudaOccupancyMaxActiveClusters),
+// into *fit; returns the status.  None is an error: the caller raises, and
+// nothing retries with another cluster size.  The attributes and the
+// check run once per (device, kernel, shared bytes, cluster, threads).
 struct ClusterFit {
   int device;
   const void* kernel;
   size_t smem;
-  int cluster, threads, status;
+  int cluster, threads, status, fit;
 };
 
-template <typename... P, typename... Args>
-inline int launch_cluster(void (*kernel)(P...), int blocks, int threads,
-                          size_t smem, int cluster, cudaStream_t stream,
-                          Args... args) {
+template <typename... P>
+inline int cluster_fit(void (*kernel)(P...), int threads, size_t smem, int cluster,
+                       int* fit) {
   static std::mutex mu;
   static std::vector<ClusterFit> fits;
-  if (smem > SMEM_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
-  cudaGetLastError();  // the status below is this launch's alone
   int device = 0;
   cudaError_t e = cudaGetDevice(&device);
   if (e != cudaSuccess) return static_cast<int>(e);
   const void* key = reinterpret_cast<const void*>(kernel);
-  int status = -1;
   {
     std::lock_guard<std::mutex> lock(mu);
     for (const ClusterFit& f : fits)
       if (f.device == device && f.kernel == key && f.smem == smem &&
-          f.cluster == cluster && f.threads == threads)
-        status = f.status;
+          f.cluster == cluster && f.threads == threads) {
+        *fit = f.fit;
+        return f.status;
+      }
   }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  // the most any launch may take, so that no configuration's launch lowers
+  // what another's needs
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(SMEM_MAX));
+  if (e == cudaSuccess && cluster > 8)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  *fit = 0;
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveClusters(fit, kernel, &cfg);
+  const int status = e != cudaSuccess ? static_cast<int>(e)
+                     : *fit < 1       ? static_cast<int>(cudaErrorLaunchOutOfResources)
+                                      : 0;
+  std::lock_guard<std::mutex> lock(mu);
+  fits.push_back({device, key, smem, cluster, threads, status, *fit});
+  return status;
+}
+
+// launch() for a grid of thread-block clusters: `blocks` blocks in
+// clusters of `cluster` along x, once cluster_fit has found a place for
+// one.
+template <typename... P, typename... Args>
+inline int launch_cluster(void (*kernel)(P...), int blocks, int threads,
+                          size_t smem, int cluster, cudaStream_t stream,
+                          Args... args) {
+  if (smem > SMEM_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
+  cudaGetLastError();  // the status below is this launch's alone
+  int fit = 0;
+  const int status = cluster_fit(kernel, threads, smem, cluster, &fit);
+  if (status != 0) return status;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = cluster;
@@ -111,24 +146,60 @@ inline int launch_cluster(void (*kernel)(P...), int blocks, int threads,
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  if (status < 0) {
-    // the most any launch may take, so that no configuration's launch
-    // lowers what another's needs
+  cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// launch() for a persistent kernel: as many blocks as the card holds at
+// once (its SMs times the blocks per SM that the threads and shared bytes
+// allow), at most `work`; each block walks work items gridDim.x apart.
+// The count is found once per (device, kernel, shared bytes, threads).
+struct PersistentFit {
+  int device;
+  const void* kernel;
+  size_t smem;
+  int threads, blocks, status;
+};
+
+template <typename... P, typename... Args>
+inline int launch_persistent(void (*kernel)(P...), int work, int threads, size_t smem,
+                             cudaStream_t stream, Args... args) {
+  static std::mutex mu;
+  static std::vector<PersistentFit> fits;
+  if (smem > SMEM_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
+  if (work < 1) return 0;
+  cudaGetLastError();  // the status below is this launch's alone
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const void* key = reinterpret_cast<const void*>(kernel);
+  int blocks = -1, status = 0;
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    for (const PersistentFit& f : fits)
+      if (f.device == device && f.kernel == key && f.smem == smem && f.threads == threads) {
+        blocks = f.blocks;
+        status = f.status;
+      }
+  }
+  if (blocks < 0) {
+    int per_sm = 0, sms = 0;
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(SMEM_MAX));
-    if (e == cudaSuccess && cluster > 8)
-      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    int fit = 0;
-    if (e == cudaSuccess) e = cudaOccupancyMaxActiveClusters(&fit, kernel, &cfg);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
     status = e != cudaSuccess ? static_cast<int>(e)
-             : fit < 1        ? static_cast<int>(cudaErrorLaunchOutOfResources)
+             : per_sm < 1     ? static_cast<int>(cudaErrorLaunchOutOfResources)
                               : 0;
+    blocks = per_sm * sms;
     std::lock_guard<std::mutex> lock(mu);
-    fits.push_back({device, key, smem, cluster, threads, status});
+    fits.push_back({device, key, smem, threads, blocks, status});
   }
   if (status != 0) return status;
-  e = cudaLaunchKernelEx(&cfg, kernel, args...);
-  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<dim3(blocks < work ? blocks : work), dim3(threads), smem, stream>>>(args...);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -101,6 +101,9 @@ _SIGNATURES = {
     # nt, stream
     "wtt_modwt_fw": [_I, _I, _I, _I, _P, _L, _L, _P, _L, _L, _P, _L, _L, _P,
                      _I, _P],
+    # dtype, B, N, L, x, xsr, xse, out, osb, taps, nt, plan[4], smem, stream
+    "wtt_modwt_fw_levels": [_I, _I, _I, _I, _P, _L, _L, _P, _L, _P, _I, _P,
+                            _L, _P],
     # dtype, B, N, dil, v1, v1sr, v1se, w1, w1sr, w1se, v, vsr, vse, taps,
     # nt, stream
     "wtt_modwt_inv": [_I, _I, _I, _I, _P, _L, _L, _P, _L, _L, _P, _L, _L, _P,

@@ -10,7 +10,12 @@ the caller wishes, and writes the merged ``(B, 2mh, 2nh)`` array.
 
 Both are driven by the wavelet's bands (ops/bands.py), so one kernel serves
 filter and lifting wavelets.  They replace the TPU kernels of
-``wavelets_tpu/ops/pallas/mxu2d.py`` (see csrc/level2d.cu).  A tensor on
+``wavelets_tpu/ops/pallas/mxu2d.py`` (see csrc/level2d.cu).  The inverse
+runs on persistent blocks that stage each tile of the four quadrants into
+shared memory with 16-byte copies, the next tile's while this one's taps
+run, and keep the bands in registers as windows of 8 or 16 offsets per
+source (:func:`inv_window`); a span of 16 or more takes its first form,
+one block per tile with wrapped taps.  A tensor on
 the CPU takes the plain PyTorch version (``level_fw_plain``,
 ``level_inv_plain``); a CUDA tensor launches the kernel or raises.
 Arithmetic runs in float32 for float32 and bfloat16 storage (bfloat16
@@ -38,6 +43,7 @@ PLAIN_CALLS = {"level_fw": 0, "level_inv": 0}
 # tile of csrc/level2d.cu: TR x TC quads per block
 _TR, _TC = 32, 32
 SMEM_LIMIT = 232448   # bytes of shared memory a block may use on the H100
+INV_WINDOWS = (8, 16)   # the tiled inverse's window bounds (csrc/level2d.cu)
 
 
 def _check_plane(t, name, shape, dtype, device):
@@ -218,6 +224,36 @@ def _smem(table, rows_ext, cols):
     return 2 * rows_ext * cols * table.coefs.element_size() + table.nbytes
 
 
+def _syn_span(wt) -> int:
+    offs = [int(o) for d, _ in synthesis_bands(wt) for o in d]
+    return max(offs) - min(offs)
+
+
+def inv_window(wt) -> int:
+    """The window bound of the tiled inverse for ``wt``'s synthesis bands:
+    the smallest of INV_WINDOWS above their span (the offsets of each
+    source fit it), or 0 where the span is 16 or more and the first form
+    runs.  csrc/level2d.cu (level_inv) makes the same choice."""
+    span = _syn_span(wt)
+    return next((w for w in INV_WINDOWS if span < w), 0)
+
+
+def inv_smem(wt, dtype) -> int:
+    """Shared bytes of one block of the inverse, in the form
+    :func:`inv_window` picks; mirrors inv_tiled_smem in csrc/level2d.cu
+    (on the 16-byte path, the widest staged row)."""
+    span, taps = _syn_span(wt), sum(len(d) for d, _ in synthesis_bands(wt))
+    acc = acc_dtype(dtype).itemsize
+    table = taps * (acc + 4)
+    rows = _TR + span
+    if not inv_window(wt):
+        return 2 * rows * 2 * _TC * acc + table
+    size = torch.empty((), dtype=dtype).element_size()
+    e = 16 // size
+    ps = -(-(e - 1 + _TC + span) // e) * e
+    return 2 * rows * 2 * _TC * acc + 2 * 4 * rows * ps * size + table
+
+
 def _launch_fw(x, wt, outs, stream):
     table = band_table(wt, False, x.dtype, x.device)
     if _smem(table, 2 * _TR + table.span, _TC) > SMEM_LIMIT:
@@ -235,7 +271,7 @@ def _launch_fw(x, wt, outs, stream):
 def _launch_inv(quads, wt, out, stream):
     ll = quads[0]
     table = band_table(wt, True, ll.dtype, ll.device)
-    if _smem(table, _TR + table.span, 2 * _TC) > SMEM_LIMIT:
+    if inv_smem(wt, ll.dtype) > SMEM_LIMIT:
         raise ValueError(f"level_inv: the bands of {wt.name} reach too far "
                          "for the kernel's shared-memory tile")
     B, mh, nh = ll.shape

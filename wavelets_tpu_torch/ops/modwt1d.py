@@ -1,14 +1,18 @@
-"""One level of the periodic MODWT over ``(B, N)`` rows: CUDA kernels K
-(forward) and M (inverse), their plain versions, and the multi-level
-driver.
+"""The periodic MODWT over ``(B, N)`` rows: the CUDA kernels (all forward
+levels of a row in one launch; one level forward, K, and inverse, M),
+their plain versions, and the multi-level driver.
 
-``modwt_fw`` takes the level-(j-1) scaling band ``v (B, N)`` to
+``modwt_fw_levels`` takes ``x (B, N)`` through levels 1..L into the
+``(B, N, L+1)`` result in one launch: a thread-block cluster per row keeps
+the scaling band in shared memory for every level and writes each block's
+span of the result once, contiguously (:func:`modwt_plan` picks the
+cluster).  ``modwt_fw`` takes the level-(j-1) scaling band ``v (B, N)`` to
 ``(v_j, w_j)`` from one read of ``v``; ``modwt_inv`` takes ``(v_j, w_j)``
 back to ``v``.  The taps are ``2^(j-1)`` apart and wrap with a true modulo,
-so any ``N >= 2^j`` runs.  Every plane is a view with a row stride and an
-element stride, so the driver writes each ``w_j`` straight into its column
-of the ``(B, N, L+1)`` output (element stride L+1) and the inverse reads it
-from there.
+so any ``N >= 2^j`` runs.  Every plane of K and M is a view with a row
+stride and an element stride, so the driver writes each ``w_j`` of a row
+too long for the plan straight into its column of the ``(B, N, L+1)``
+output (element stride L+1), and the inverse reads it from there.
 
 The filters are ``ops/modwt.modwt_filter_pair``'s and the plain versions
 are ``ops/modwt.modwt_step`` / ``imodwt_step``.  The kernels replace
@@ -21,22 +25,98 @@ float64.
 
 from __future__ import annotations
 
+import ctypes
 from functools import lru_cache
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from . import build
 from .bands import acc_dtype
-from .level2d import DTYPES, _check_disjoint
+from .level2d import DTYPES, SMEM_LIMIT, _check_disjoint
 from .modwt import check_levels, imodwt_step, modwt_filter_pair, modwt_step
 from .scratch import Scratch
 
-__all__ = ["LAUNCHES", "PLAIN_CALLS", "modwt_fw", "modwt_fw_plain",
-           "modwt_inv", "modwt_inv_plain", "modwt", "imodwt"]
+__all__ = ["LAUNCHES", "PLAIN_CALLS", "ModwtPlan", "modwt_plan",
+           "cluster_plan", "modwt_fw_levels", "modwt_fw_levels_plain",
+           "modwt_fw", "modwt_fw_plain", "modwt_inv", "modwt_inv_plain",
+           "modwt", "imodwt"]
 
-LAUNCHES = {"modwt_fw": 0, "modwt_inv": 0}
-PLAIN_CALLS = {"modwt_fw": 0, "modwt_inv": 0}
+LAUNCHES = {"modwt_fw_levels": 0, "modwt_fw": 0, "modwt_inv": 0}
+PLAIN_CALLS = {"modwt_fw_levels": 0, "modwt_fw": 0, "modwt_inv": 0}
+
+SMS = 132              # streaming multiprocessors of the H100
+MAX_CLUSTER = 8        # blocks per row: the portable cluster size
+# a cluster of 16 (non-portable) only for batches of up to WIDE_BATCH
+# rows, as ops/tail2d.py takes it
+WIDE_CLUSTER, WIDE_BATCH = 16, 3
+MIN_SPAN = 128         # samples per block below which no block is added
+TAP_TEMPLATES = (8, 16, 32)   # compile-time tap bounds of csrc/modwt1d.cu
+
+
+class ModwtPlan(NamedTuple):
+    """How :func:`modwt_fw_levels` launches (csrc/modwt1d.cu)."""
+    fits: bool     # False: the row takes one K launch per level
+    cluster: int   # P: blocks per row, a power of two
+    span: int      # R: samples per block (the last block takes the rest)
+    halo: int      # H: level L's reach, (taps - 1) 2^(L-1) samples
+    taps: int      # compile-time tap bound
+    smem: int      # shared bytes per block
+
+
+def _layout_bytes(N, L, P, H, size):
+    """Shared bytes of one block; mirrors ModwtGeom::elems in
+    csrc/modwt1d.cu: two scaling buffers of H + R, and the output stage of
+    R (L + 1) samples plus one 16-byte word, each rounded to 16 bytes."""
+    e = 16 // size
+    R = -(-N // P)
+
+    def up(v):
+        return -(-v // e) * e
+
+    return (2 * up(H + R) + up(R * (L + 1) + e)) * size
+
+
+@lru_cache(maxsize=None)
+def modwt_plan(N: int, L: int, taps: int, dtype, B: int = 1) -> ModwtPlan:
+    """The launch plan of ``B`` rows of ``N`` samples through ``L`` levels
+    of a ``taps``-tap filter pair, a pure function of its arguments.
+
+    P is the smallest power of two whose layout fits half a block's shared
+    memory (two blocks per SM), else the smallest that fits one block; it
+    then doubles while ``B * P`` blocks stay within the card's SMs, up to
+    MAX_CLUSTER (WIDE_CLUSTER for up to WIDE_BATCH rows), while each block
+    keeps MIN_SPAN samples or more.  A row that no cluster holds, or a
+    filter of more than 32 taps, does not fit: it runs one K launch per
+    level, on the CPU as on the card."""
+    most = WIDE_CLUSTER if B <= WIDE_BATCH else MAX_CLUSTER
+    plans = [plan for plan in (cluster_plan(P, N, L, taps, dtype)
+                               for P in (1, 2, 4, 8, 16) if P <= most)
+             if plan is not None]
+    pick = [p for p in plans if p.smem <= SMEM_LIMIT // 2] or plans
+    if not pick:
+        return ModwtPlan(False, 0, 0, (taps - 1) * 2 ** (L - 1), 0, 0)
+    plan = pick[0]
+    sizes = {p.cluster: p for p in plans}
+    while 2 * plan.cluster in sizes and B * 2 * plan.cluster <= SMS:
+        plan = sizes[2 * plan.cluster]
+    return plan
+
+
+def cluster_plan(P: int, N: int, L: int, taps: int,
+                 dtype) -> ModwtPlan | None:
+    """The plan with a cluster of ``P`` blocks per row, or None where the
+    kernel cannot take it: more than 32 taps, blocks of fewer than
+    MIN_SPAN samples (for P > 1), or more shared memory than a block has."""
+    size = torch.empty((), dtype=dtype).element_size()
+    H = (taps - 1) * 2 ** (L - 1)
+    K = next((k for k in TAP_TEMPLATES if taps <= k), 0)
+    R = -(-N // P)
+    smem = _layout_bytes(N, L, P, H, size)
+    if not K or (P > 1 and R < MIN_SPAN) or smem > SMEM_LIMIT:
+        return None
+    return ModwtPlan(True, P, R, H, K, smem)
 
 
 def _check_rows(t, name, shape=None, dtype=None, device=None):
@@ -84,18 +164,61 @@ def _inv_out(v1, w1, j, out):
     return out
 
 
+def _levels_out(x, L, out):
+    _check_rows(x, "x")
+    B, N = x.shape
+    check_levels(N, L)
+    shape = (B, N, L + 1)
+    if out is None:
+        return torch.empty(shape, dtype=x.dtype, device=x.device)
+    if not isinstance(out, torch.Tensor) or tuple(out.shape) != shape:
+        raise ValueError(f"out must be a {shape} tensor")
+    if out.dtype != x.dtype or out.device != x.device:
+        raise ValueError(f"out is {out.dtype} on {out.device}, expected "
+                         f"{x.dtype} on {x.device}")
+    if out.stride(2) != 1 or out.stride(1) != L + 1:
+        raise ValueError("out needs rows of L+1 contiguous samples")
+    return out
+
+
+def _plan_of(x, wt, L):
+    B, N = x.shape
+    return modwt_plan(N, L, len(modwt_filter_pair(wt)[0]), x.dtype, B)
+
+
 # --- plain versions ----------------------------------------------------------
+
+def _step(v, wt, j):
+    """(v_j, w_j) of ``v`` in the arithmetic type."""
+    g, h = modwt_filter_pair(wt)
+    return modwt_step(v.to(acc_dtype(v.dtype)), j, h, g)
+
 
 def modwt_fw_plain(v, wt, j: int, v1=None, w1=None):
     """Plain PyTorch version of :func:`modwt_fw` (``ops/modwt.modwt_step``
     in the arithmetic type)."""
     v1, w1 = _fw_outs(v, j, v1, w1)
-    g, h = modwt_filter_pair(wt)
     PLAIN_CALLS["modwt_fw"] += 1
-    sv, sw = modwt_step(v.to(acc_dtype(v.dtype)), j, h, g)
+    sv, sw = _step(v, wt, j)
     v1.copy_(sv)
     w1.copy_(sw)
     return v1, w1
+
+
+def modwt_fw_levels_plain(x, wt, L: int, out=None):
+    """Plain PyTorch version of :func:`modwt_fw_levels`: the chain of
+    :func:`modwt_fw_plain` levels into the ``(B, N, L+1)`` layout, each
+    scaling band rounded to the storage type between levels (without the
+    plan's size limit)."""
+    out = _levels_out(x, L, out)
+    PLAIN_CALLS["modwt_fw_levels"] += 1
+    v = x
+    for j in range(1, L + 1):
+        sv, sw = _step(v, wt, j)
+        out[..., j - 1].copy_(sw)
+        v = sv.to(x.dtype)
+    out[..., L].copy_(v)
+    return out
 
 
 def modwt_inv_plain(v1, w1, wt, j: int, out=None):
@@ -141,6 +264,44 @@ def _launch_inv(v1, w1, wt, j, out, stream):
         stream), "modwt_inv")
 
 
+@lru_cache(maxsize=None)
+def _plan_args(plan):
+    """The plan as the C interface takes it: int32[4] and the bytes."""
+    return ((ctypes.c_int * 4)(plan.cluster, plan.span, plan.halo,
+                               plan.taps), plan.smem)
+
+
+def _launch_levels(x, wt, L, out, stream, plan=None):
+    taps = _taps(wt, x.dtype, x.device)
+    B, N = x.shape
+    plan = plan or _plan_of(x, wt, L)
+    build.check(build.library().wtt_modwt_fw_levels(
+        build.dtype_code(x.dtype), B, N, L, *_rows_args(x), out.data_ptr(),
+        out.stride(0), taps.data_ptr(), taps.numel() // 2, *_plan_args(plan),
+        stream), "modwt_fw_levels")
+
+
+def modwt_fw_levels(x, wt, L: int, out=None):
+    """Levels 1..L of ``x (B, N)`` (any strides) in one launch -> ``out``
+    ``(B, N, L+1)``, rows of L+1 contiguous samples (allocated when None),
+    which may not overlap ``x``: detail j in column j-1, the scaling band
+    in column L.  Raises for rows that :func:`modwt_plan` does not fit;
+    :func:`modwt` runs those one level at a time.  Returns ``out``."""
+    out = _levels_out(x, L, out)
+    _check_disjoint((x,), (out,), "modwt_fw_levels")
+    if not _plan_of(x, wt, L).fits:
+        raise ValueError(f"modwt_fw_levels: rows of {x.shape[1]} {x.dtype} "
+                         f"through {L} levels fit no cluster (modwt_plan)")
+    if x.device.type == "cpu":
+        return modwt_fw_levels_plain(x, wt, L, out)
+    if x.numel():
+        with torch.cuda.device(x.device):
+            _launch_levels(x, wt, L, out,
+                           torch.cuda.current_stream().cuda_stream)
+        LAUNCHES["modwt_fw_levels"] += 1
+    return out
+
+
 def modwt_fw(v, wt, j: int, v1=None, w1=None):
     """MODWT level ``j`` of ``v (B, N)``: the planes ``v1`` (scaling) and
     ``w1`` (detail), ``(B, N)`` views with any strides (allocated when both
@@ -176,13 +337,18 @@ def modwt_inv(v1, w1, wt, j: int, out=None):
 
 def modwt(x, wt, L: int, *, plain: bool = False):
     """L-level MODWT of ``x (B, N)`` -> ``(B, N, L+1)``: detail j in column
-    j-1, the scaling band in column L.  One K launch per level; the scaling
-    bands take turns in two scratch rows, and each detail lands in its
-    column.  ``plain=True`` runs the plain versions on any device."""
+    j-1, the scaling band in column L.  Rows that :func:`modwt_plan` fits
+    take one :func:`modwt_fw_levels` launch; longer rows one K launch per
+    level, the scaling bands taking turns in two scratch rows and each
+    detail landing in its column.  ``plain=True`` runs the plain versions
+    on any device."""
     B, N = x.shape
     check_levels(N, L)
-    fw = modwt_fw_plain if plain else modwt_fw
     out = torch.empty((B, N, L + 1), dtype=x.dtype, device=x.device)
+    if _plan_of(x, wt, L).fits:
+        levels = modwt_fw_levels_plain if plain else modwt_fw_levels
+        return levels(x, wt, L, out)
+    fw = modwt_fw_plain if plain else modwt_fw
     scratch = Scratch(x, (B * N, B * N))
     v = x
     for j in range(1, L + 1):

@@ -101,8 +101,8 @@ def geometric3d(L: int) -> float:
 
 
 def geometric_modwt(L: int) -> float:
-    """The MODWT's floor in the same units: each of the L levels reads one
-    plane of ``x``'s size and writes two (forward), or reads two and writes
-    one (inverse), so 3L planes move, which :func:`sol_fraction` counts as
-    2 * (3L / 2)."""
-    return 1.5 * L
+    """The MODWT's floor in the same units: the least traffic of either
+    direction, one plane of ``x``'s size read and L + 1 written (forward),
+    or L + 1 read and one written (inverse), so L + 2 planes move, which
+    :func:`sol_fraction` counts as 2 * ((L + 2) / 2)."""
+    return (L + 2) / 2

@@ -26,10 +26,11 @@ reads from the JAX package's switches at every call), to ops/dwt1d.py for ``ndt 
 (leading axes flatten onto the batch) and to ops/dwt3d.py for ``ndt == 3``
 (one volume at a time); their launches run the CUDA kernels on a CUDA
 tensor and their plain versions on a CPU tensor.  ``wpt``/``iwpt`` run one
-1-D level launch per tree depth (ops/wpt.py), ``modwt``/``imodwt`` one
-MODWT level launch per level (ops/modwt1d.py).  Everything else runs on
-the torch engines (ops/lifting.py, ops/filter_fb.py, ops/modwt.py) on the
-tensor's own device.
+1-D level launch per tree depth (ops/wpt.py); ``modwt`` one launch for
+all levels where ops/modwt1d.py's plan fits the rows (one level launch
+per level beyond it), ``imodwt`` one level launch per level.  Everything
+else runs on the torch engines (ops/lifting.py, ops/filter_fb.py,
+ops/modwt.py) on the tensor's own device.
 """
 
 from __future__ import annotations
