@@ -187,3 +187,54 @@ def test_rows_are_independent():
     for b in range(4):
         sb, db = level1d.level1d_fw(x[b:b + 1], wt)
         assert torch.equal(sb[0], s[b]) and torch.equal(db[0], d[b])
+
+
+# kernel F's form and shared bytes per wavelet (float32, bfloat16,
+# float64), worked out by hand from csrc/level1d.cu.  The tiled form's
+# stage holds the s and d rows of a full tile (512 groups of V pairs, V =
+# 8 / element bytes) plus 32 elements each and a pad of 64: cdf97 in
+# float32 2 * (2 * (1024 + 32) + 64) * 4 = 17408 bytes for two stages,
+# and its 16 synthesis taps 16 * 8 = 128.  db10 (span 18) takes the first
+# form: 2 * (256 + 18) * acc + its 40 taps' table.
+INV1D_FORMS = [("cdf97", "lifting", 8, (17536, 17024, 18624)),
+               ("haar", "lifting", 8, (17440, 16928, 18480)),
+               ("db4", "filter", 8, (17536, 17024, 18624)),
+               ("coif4", "filter", 16, (17600, 17088, 18720)),
+               ("db10", "filter", 0, (2512, 2512, 4864))]
+
+
+@pytest.mark.parametrize("dtype_i, dtype", list(enumerate(
+    (torch.float32, torch.bfloat16, torch.float64))))
+@pytest.mark.parametrize("name, kind, window, smem", INV1D_FORMS)
+def test_inverse_window_and_shared_bytes(name, kind, window, smem, dtype_i,
+                                         dtype):
+    """Kernel F's form for a wavelet: the tiled kernel's window (8 or 16
+    offsets, above the synthesis bands' span) or 0, the first form, for a
+    span of 16 or more; the shared bytes of one block, within the card's
+    227 KB; and the band order the tiled kernel takes for the table's (each
+    synthesis band strictly ascending)."""
+    wt = T.wavelet(T.wt.ALL_CLASSES[name], kind)
+    bands = level1d.synthesis_bands(wt)
+    offs = np.concatenate([d for d, _ in bands])
+    span = int(offs.max() - offs.min())
+    assert level1d.inv1d_window(wt) == window
+    assert (span < window) if window else span >= 16
+    assert level1d.inv1d_smem(wt, dtype) == smem[dtype_i] <= 232448
+    for d, _ in bands:
+        assert (np.diff(d) > 0).all()
+
+
+def test_inverse_refuses_an_output_over_its_input():
+    """The tiled F stages the next tile while it writes this one, so an
+    output that overlaps s or d is refused, as for the forward; its
+    callers (ops/dwt1d.py, ops/wpt.py, ops/rowcol2d.py,
+    parallel/sharded.py) pass disjoint planes."""
+    wt = T.wavelet(T.wt.cdf97, "lifting")
+    y = torch.zeros((3, 16))
+    with pytest.raises(ValueError, match="overlaps"):
+        level1d.level1d_inv(y[:, :4], y[:, 4:8], wt, out=y[:, 8:])
+    with pytest.raises(ValueError, match="overlaps"):
+        level1d.level1d_inv(y[:, :4], y[:, 4:8], wt, out=y[:, :8])
+    out = torch.empty((3, 8))
+    level1d.level1d_inv(y[:, :4], y[:, 4:8], wt, out=out)
+

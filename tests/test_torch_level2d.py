@@ -258,3 +258,40 @@ def test_inverse_window_and_shared_bytes(name, kind, window):
         if window == 0:
             table = level2d.band_table(wt, True, dtype, torch.device("cpu"))
             assert smem == level2d._smem(table, 32 + span, 64)
+
+
+# kernel A's form and shared bytes per wavelet (float32, bfloat16,
+# float64), worked out by hand from csrc/level2d.cu.  cdf97 in float32:
+# analysis offsets -4 .. 4 (span 8, window 16); a 32-row tile stages 2 *
+# 32 - 1 + 8 = 71 rows of ceil((0 + 2 * 32 - 1 + 8) / 4) * 4 = 72 floats,
+# padded to 76 (an odd count of 16-byte words); S and D 2 * 71 * 32 * 4 =
+# 18176 bytes, two stages 2 * (71 * 76 + 64) * 4 = 43680, the table of 16
+# taps 16 * 8 = 128: 61984 in all.  coif4 and db10 (spans 21 and 37) take
+# the first form: 2 * (64 + span) * 32 * acc + the table.
+FW_FORMS = [("cdf97", "lifting", 16, (61984, 41280, 67360)),
+            ("haar", "lifting", 8, (51744, 33056, 51248)),
+            ("db4", "filter", 16, (71168, 44160, 78656)),
+            ("coif4", "filter", 0, (21952, 21952, 43808)),
+            ("db10", "filter", 0, (26176, 26176, 52192))]
+
+
+@pytest.mark.parametrize("dtype_i, dtype", list(enumerate(
+    (torch.float32, torch.bfloat16, torch.float64))))
+@pytest.mark.parametrize("name, kind, window, smem", FW_FORMS)
+def test_forward_window_and_shared_bytes(name, kind, window, smem, dtype_i,
+                                         dtype):
+    """Kernel A's form for a wavelet: the tiled kernel's window (8 or 16
+    offsets, above the analysis bands' span) or 0, the first form, for a
+    span of 16 or more; the shared bytes of one block, within the card's
+    227 KB; and the band order the tiled kernel reads off the table (the
+    scaling band strictly ascending, the detail band too, or descending:
+    a filter's)."""
+    wt = T.wavelet(T.wt.ALL_CLASSES[name], kind)
+    ds, _, dd, _ = level2d.level_bands(wt)
+    span = int(max(ds.max(), dd.max()) - min(ds.min(), dd.min()))
+    assert level2d.fw_window(wt) == window
+    assert (span < window) if window else span >= 16
+    assert level2d.fw_smem(wt, dtype) == smem[dtype_i] <= level2d.SMEM_LIMIT
+    assert (np.diff(ds) > 0).all()
+    assert (np.diff(dd) > 0).all() or (np.diff(dd) < 0).all()
+

@@ -45,6 +45,76 @@ __device__ __forceinline__ void load_bands(A* cf, int* of, const A* coefs,
   }
 }
 
+// cp.async of one 16-byte word from device memory into shared memory,
+// its commit, and the wait for all but the newest group (the PTX under
+// __CUDA_ARCH__; a plain copy elsewhere, where the commit and wait have
+// nothing to do).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+#ifdef __CUDA_ARCH__
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+#else
+  *static_cast<uint4*>(dst) = *static_cast<const uint4*>(src);
+#endif
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+#endif
+}
+
+__device__ __forceinline__ void cp_async_wait1() {  // all but the newest group
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+#endif
+}
+
+// 16 bytes of the arithmetic type (4 float, 2 double), and the unsigned
+// word of BYTES bytes (a 16-, 8-, 4- or 2-byte load or store).
+template <typename A> struct Vec16 { using type = float4; static constexpr int n = 4; };
+template <> struct Vec16<double> { using type = double2; static constexpr int n = 2; };
+template <int BYTES> struct Word { using type = uint4; };
+template <> struct Word<8> { using type = uint2; };
+template <> struct Word<4> { using type = unsigned; };
+template <> struct Word<2> { using type = unsigned short; };
+
+// xv[j] = ld(src[j]) out of shared memory for the words that hold j < cnt
+// (cnt <= N; the rest of xv is left as it is), read in words of G bytes
+// (src G-byte aligned); the last word may reach past src[cnt - 1].
+template <int G, typename T, typename A, int N>
+__device__ __forceinline__ void load_words(A (&xv)[N], const T* src, int cnt) {
+  constexpr int P = G / sizeof(T);  // elements per word
+  using WT = typename Word<G>::type;
+#pragma unroll
+  for (int q = 0; q < N; q += P) {
+    if (q >= cnt) break;
+    __align__(16) T w[P];
+    *reinterpret_cast<WT*>(w) = reinterpret_cast<const WT*>(src)[q / P];
+#pragma unroll
+    for (int e = 0; e < P; ++e)
+      if (q + e < N) xv[q + e] = ld(w[e]);
+  }
+}
+
+// load_words with the widest word that the caller's alignment `gran`
+// (16, 8, or the element's size, in bytes) allows.
+template <typename T, typename A, int N>
+__device__ __forceinline__ void load_window(A (&xv)[N], const T* src, int cnt, int gran) {
+  if (gran == 16)
+    load_words<16>(xv, src, cnt);
+  else if (gran == 8)
+    load_words<8>(xv, src, cnt);
+  else
+    load_words<sizeof(T)>(xv, src, cnt);
+}
+
+// The widest of 16 and 8 bytes (else the element) that divides the byte
+// offsets `a` and `b` of a staged window.
+__host__ __device__ inline int window_gran(long long a, long long b, int elem) {
+  return (a % 16 == 0 && b % 16 == 0) ? 16 : (a % 8 == 0 && b % 8 == 0) ? 8 : elem;
+}
+
 // Shared memory one block may take on the H100 (227 KiB).
 constexpr size_t SMEM_MAX = 232448;
 

@@ -19,16 +19,41 @@
 // memory sees each input byte once.  The arithmetic (cdf97: 16 FMA per
 // output pair) is far below the FP32 peak.
 //
-// Design: a block takes a tile of up to E_TK output pairs of one row (a
-// long row is split into tiles) or several whole rows (short rows, as at
-// deep packet depths where rows have 2 samples), loads the tile's input
-// window (2 * pairs + span samples per row, wrapped modulo n, coalesced)
+// Kernel E, and the first form of kernel F: a block takes a tile of up to
+// E_TK (F_TK) output pairs of one row (a long row is split into tiles) or
+// several whole rows (short rows, as at deep packet depths where rows have
+// 2 samples), loads the tile's input window (wrapped modulo n, coalesced)
 // into shared memory in the arithmetic type, and computes its outputs from
 // there.  Rows and tiles ride blockIdx.x only (a packet depth can have
 // 2^19 rows, beyond gridDim.y's 65535).  Outputs go through caller-given
 // planes with their own row strides: the packed array's detail segment,
-// or the two halves of each output row for the packet transform.  Tiling
-// for TMA is left to later work.
+// or the two halves of each output row for the packet transform.
+//
+// Kernel F (level1d_inv_tiled_kernel) ran at 4.4x its bound in that form:
+// an integer division and two scalar global loads per staged element, a
+// shared band-table read per tap, two outputs per thread and 524,288
+// blocks at 16384 rows of 16384.  Its design is kernel B's
+// (csrc/level2d.cu):
+// * Staging.  Persistent blocks walk work items: a tile of up to 512 V
+//   pairs of one row, or as many whole short rows as fit one (an iwpt
+//   depth of 2^19 rows of one pair runs 1024 items, not 2^19 blocks).
+//   Each item's s and d windows (pairs + span, wrapped while staged) go
+//   into shared memory by 16-byte cp.async in two stages, the next item's
+//   copies in flight while this item's taps run; a staged row takes a
+//   power of two of threads, so no division per element.  Planes whose
+//   bases, row strides or length are not whole 16-byte words take a
+//   4-byte staging path of the same kernel (VEC = false).
+// * The four synthesis bands in registers as dense windows over the
+//   synthesis span (W = 8 or 16 wide, chosen by the span; masks select
+//   each band's taps).
+// * Each thread makes V neighbouring pairs, 2V outputs, one 16-byte word
+//   of x, stored as one word.
+// * The arithmetic of the first form: one explicit fma per tap, the S
+//   band then the D band, taps in table order.
+// A span of 16 or more (db10 and up) takes the first form
+// (level1d_inv_wrap_kernel).
+
+#include <algorithm>
 
 #include "common.cuh"
 
@@ -112,9 +137,10 @@ level1d_fw_kernel(const T* __restrict__ x, int64_t xs, T* s, int64_t ss, T* d,
 // S0, D0, S1, D1 (in that order in the band table):
 //   x[b, 2k+p] = sum cS_p[i] s[b, (k + dS_p[i]) mod nh]
 //              + sum cD_p[i] d[b, (k + dD_p[i]) mod nh].
+// The first form of kernel F, for spans of 16 or more.
 template <typename T>
 __global__ void __launch_bounds__(E_THREADS)
-level1d_inv_kernel(const T* __restrict__ s, int64_t ss, const T* __restrict__ d,
+level1d_inv_wrap_kernel(const T* __restrict__ s, int64_t ss, const T* __restrict__ d,
                    int64_t dst, T* x, int64_t xs, int B, int nh, int tk,
                    int tiles, int rpb, const int* __restrict__ offs,
                    const typename Acc<T>::type* __restrict__ coefs, int n0,
@@ -179,11 +205,173 @@ int level1d_fw(int B, int n, const void* x, int64_t xs, void* s, int64_t ss,
                 dmin, span);
 }
 
+// --- kernel F: staged tiles, dense windows in registers ----------------------
+
+constexpr int FI_THREADS = 256;
+constexpr int FI_GROUPS = 512;  // pair groups of V pairs per tile
+constexpr int FI_SLACK = 32;    // staged elements of a row beyond a full tile's pairs
+constexpr int FI_PAD = 64;      // staged elements past a stage's last row
+
+// Geometry of the tiled inverse, filled by the host; ops/level1d.py
+// (inv1d_smem) mirrors the shared bytes.  A work item is a tile of tk
+// output pairs of rpb rows: a long row (nh above a full tile's FI_GROUPS V
+// pairs) is cut into `tiles` tiles of one row each; shorter rows are one
+// tile each, rpb of them together.  A staged row of s or d holds ps
+// storage elements, element e being (k0 + smin - sh + e) mod nh, with sh =
+// smin mod E on the 16-byte path and 0 on the 4-byte path; ps is a whole
+// number of 16-byte words.  Pair group g (V pairs) of a tile's row r is
+// unit r << gsh | g; staged slot q (the s row of tile row q >> 1, or its d
+// row) takes 1 << lsh threads.  A stage has room for two rows of a full
+// tile, so its size does not depend on the shape.
+struct Inv1dGeom {
+  int B, nh, smin, span, tk, tiles, rpb, gsh, ps, sh, lsh;
+};
+
 template <typename T>
-int level1d_inv(int B, int nh, const void* s, int64_t ss, const void* d,
-                int64_t dst, void* x, int64_t xs, const int* offs,
-                const void* coefs, const int* nb, int smin, int span,
-                cudaStream_t stream) {
+__host__ __device__ constexpr int inv1d_stage() {  // T elements of one stage
+  return 2 * (FI_GROUPS * (8 / static_cast<int>(sizeof(T))) + FI_SLACK) + FI_PAD;
+}
+
+template <typename T>
+size_t inv1d_tiled_smem(int nt) {
+  using A = typename Acc<T>::type;
+  return 2 * static_cast<size_t>(inv1d_stage<T>()) * sizeof(T) +
+         static_cast<size_t>(nt) * (sizeof(A) + sizeof(int));
+}
+
+// Kernel F's tiled form: each thread takes V neighbouring pairs of one row
+// (2V outputs, one 16-byte word of x): it reads the V + span staged
+// values of s and of d that they need once, in words of 8 bytes where
+// their alignment allows, feeds each to every tap that reaches it, and
+// stores the 2V outputs as one 16-byte word.  The windows run over the
+// synthesis span, offsets smin + d for d < W, one per band (S0, S1, D0,
+// D1) with a mask; each output sums its S band, then its D band, taps in
+// ascending offset, the table's order (bands.py reads them off in that
+// order).
+template <typename T, int W, bool VEC>
+__global__ void __launch_bounds__(FI_THREADS, 2)
+level1d_inv_tiled_kernel(const T* __restrict__ s, int64_t ss, const T* __restrict__ d,
+                         int64_t dst, T* x, int64_t xs, bool vout, Inv1dGeom g,
+                         const int* __restrict__ offs,
+                         const typename Acc<T>::type* __restrict__ coefs, int n0, int n1,
+                         int n2, int n3) {
+  using A = typename Acc<T>::type;
+  constexpr int E = 16 / sizeof(T);  // storage elements per 16-byte word
+  constexpr int V = E / 2;           // pairs per thread
+  constexpr int NV = V + W - 1;      // staged values a group may read per source
+  constexpr int SB = inv1d_stage<T>();
+  using TW = typename Word<16>::type;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* stg = reinterpret_cast<T*>(smem_raw);  // two stages: [rpb][s row, d row]
+  const int nt = n0 + n1 + n2 + n3, e0 = n0 + n1, e1 = e0 + n2;
+  A* cf = reinterpret_cast<A*>(stg + 2 * SB);
+  int* of = reinterpret_cast<int*>(cf + nt);
+  const int tid = threadIdx.x;
+  const int groups = (g.B + g.rpb - 1) / g.rpb, total = groups * g.tiles;
+
+  // stage work item `t` into stage buffer `buf`: 1 << lsh threads per
+  // staged row, one per 16-byte word (per element on the 4-byte path); the
+  // modulo only where the tile's window wraps
+  const auto stage = [&](int t, int buf) {
+    const int grp = t / g.tiles, b0 = grp * g.rpb;
+    const int rows = min(g.rpb, g.B - b0), k0 = (t - grp * g.tiles) * g.tk;
+    T* dstg = stg + buf * SB;
+    const int cb = k0 + g.smin - g.sh;
+    const bool cin = cb >= 0 && cb + g.ps <= g.nh;
+    const int nw = VEC ? g.ps / E : g.ps, sl = (1 << g.lsh) - 1;
+    for (int q = tid >> g.lsh; q < 2 * rows; q += FI_THREADS >> g.lsh) {
+      const int64_t b = b0 + (q >> 1);
+      const T* row = (q & 1) ? d + b * dst : s + b * ss;
+      T* dq = dstg + q * g.ps;
+      for (int k = tid & sl; k < nw; k += sl + 1) {
+        if (VEC)
+          cp_async16(dq + k * E, row + (cin ? cb + k * E : wrap(cb + k * E, g.nh)));
+        else
+          dq[k] = row[cin ? cb + k : wrap(cb + k, g.nh)];
+      }
+    }
+  };
+  if (static_cast<int>(blockIdx.x) < total) stage(blockIdx.x, 0);
+  cp_async_commit();
+
+  load_bands(cf, of, coefs, offs, nt, tid, FI_THREADS);
+  __syncthreads();
+  // the dense windows: cs0[w] / ms0 bit w the parity-0 S band's tap at
+  // offset smin + w (cs1: parity 1; cd0, cd1: the D bands)
+  A cs0[W], cs1[W], cd0[W], cd1[W];
+  unsigned ms0 = 0, ms1 = 0, md0 = 0, md1 = 0;
+#pragma unroll
+  for (int w = 0; w < W; ++w) {
+    cs0[w] = cs1[w] = cd0[w] = cd1[w] = A(0);
+    for (int k = 0; k < nt; ++k) {
+      if (of[k] - g.smin != w) continue;
+      const int band = k < n0 ? 0 : k < e0 ? 1 : k < e1 ? 2 : 3;
+      if (band == 0) { cs0[w] = cf[k]; ms0 |= 1u << w; }
+      if (band == 1) { cd0[w] = cf[k]; md0 |= 1u << w; }
+      if (band == 2) { cs1[w] = cf[k]; ms1 |= 1u << w; }
+      if (band == 3) { cd1[w] = cf[k]; md1 |= 1u << w; }
+    }
+  }
+  const int gran = window_gran(static_cast<long long>(g.sh) * sizeof(T),
+                               V * static_cast<long long>(sizeof(T)), sizeof(T));
+  const int cntv = V + g.span;
+
+  for (int t = blockIdx.x, it = 0; t < total; t += gridDim.x, ++it) {
+    // the next work item's loads go out before this one's taps
+    if (t + static_cast<int>(gridDim.x) < total) stage(t + gridDim.x, (it + 1) & 1);
+    cp_async_commit();
+    cp_async_wait1();
+    __syncthreads();  // this item staged
+    const int grp = t / g.tiles, b0 = grp * g.rpb;
+    const int rows = min(g.rpb, g.B - b0), k0 = (t - grp * g.tiles) * g.tk;
+    const int cnt = min(g.tk, g.nh - k0);
+    const T* sq = stg + (it & 1) * SB;
+    for (int u = tid; u < g.rpb << g.gsh; u += FI_THREADS) {
+      const int r = u >> g.gsh, k = (u & ((1 << g.gsh) - 1)) * V;
+      if (r >= rows || k >= cnt) continue;
+      A sv[NV], dv[NV];
+      load_window(sv, sq + 2 * r * g.ps + k + g.sh, cntv, gran);
+      load_window(dv, sq + (2 * r + 1) * g.ps + k + g.sh, cntv, gran);
+      A o[2 * V];
+#pragma unroll
+      for (int e = 0; e < 2 * V; ++e) o[e] = A(0);
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        if (w > g.span) break;
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          if ((ms0 >> w) & 1) o[2 * e] = fma(cs0[w], sv[e + w], o[2 * e]);
+          if ((ms1 >> w) & 1) o[2 * e + 1] = fma(cs1[w], sv[e + w], o[2 * e + 1]);
+        }
+      }
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        if (w > g.span) break;
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          if ((md0 >> w) & 1) o[2 * e] = fma(cd0[w], dv[e + w], o[2 * e]);
+          if ((md1 >> w) & 1) o[2 * e + 1] = fma(cd1[w], dv[e + w], o[2 * e + 1]);
+        }
+      }
+      T* op = x + static_cast<int64_t>(b0 + r) * xs + 2 * (k0 + k);
+      if (vout && k + V <= cnt) {
+        __align__(16) T wv[2 * V];
+#pragma unroll
+        for (int e = 0; e < 2 * V; ++e) st(wv + e, o[e]);
+        *reinterpret_cast<TW*>(op) = *reinterpret_cast<const TW*>(wv);
+      } else {
+        for (int e = 0; e < 2 * V && k + e / 2 < cnt; ++e) st(op + e, o[e]);
+      }
+    }
+    __syncthreads();  // every thread is done with this buffer before it is restaged
+  }
+}
+
+template <typename T>
+int level1d_inv_wrap(int B, int nh, const void* s, int64_t ss, const void* d,
+                     int64_t dst, void* x, int64_t xs, const int* offs,
+                     const void* coefs, const int* nb, int smin, int span,
+                     cudaStream_t stream) {
   using A = typename Acc<T>::type;
   const int nt = nb[0] + nb[1] + nb[2] + nb[3];
   // two windows (s and d) of tk + span samples per row
@@ -191,11 +379,68 @@ int level1d_inv(int B, int nh, const void* s, int64_t ss, const void* d,
   if (tl.blocks > MAX_BLOCKS) return static_cast<int>(cudaErrorInvalidConfiguration);
   const size_t smem = 2 * static_cast<size_t>(tl.rpb) * (tl.tk + span) * sizeof(A) +
                       static_cast<size_t>(nt) * (sizeof(A) + sizeof(int));
-  return launch(level1d_inv_kernel<T>, dim3(static_cast<unsigned>(tl.blocks)),
+  return launch(level1d_inv_wrap_kernel<T>, dim3(static_cast<unsigned>(tl.blocks)),
                 dim3(E_THREADS), smem, stream, static_cast<const T*>(s), ss,
                 static_cast<const T*>(d), dst, static_cast<T*>(x), xs, B, nh,
                 tl.tk, tl.tiles, tl.rpb, offs, static_cast<const A*>(coefs),
                 nb[0], nb[1], nb[2], nb[3], smin, span);
+}
+
+inline int ceil_log2(int v) {
+  int l = 0;
+  while ((1 << l) < v) ++l;
+  return l;
+}
+
+template <typename T, int W, bool VEC>
+int level1d_inv_tiled(const Inv1dGeom& g, const void* s, int64_t ss, const void* d,
+                      int64_t dst, void* x, int64_t xs, bool vout, const int* offs,
+                      const void* coefs, const int* nb, cudaStream_t stream) {
+  using A = typename Acc<T>::type;
+  const int64_t work = static_cast<int64_t>((g.B + g.rpb - 1) / g.rpb) * g.tiles;
+  if (work > 2147483647) return static_cast<int>(cudaErrorInvalidConfiguration);
+  return launch_persistent(level1d_inv_tiled_kernel<T, W, VEC>, static_cast<int>(work),
+                           FI_THREADS, inv1d_tiled_smem<T>(nb[0] + nb[1] + nb[2] + nb[3]),
+                           stream, static_cast<const T*>(s), ss, static_cast<const T*>(d),
+                           dst, static_cast<T*>(x), xs, vout, g, offs,
+                           static_cast<const A*>(coefs), nb[0], nb[1], nb[2], nb[3]);
+}
+
+// Kernel F: the tiled form for spans below 16 (a window of 8 or 16
+// offsets), 16-byte staging where s's and d's bases and row strides and nh
+// are whole 16-byte words; the first form otherwise.
+template <typename T>
+int level1d_inv(int B, int nh, const void* s, int64_t ss, const void* d,
+                int64_t dst, void* x, int64_t xs, const int* offs,
+                const void* coefs, const int* nb, int smin, int span,
+                cudaStream_t stream) {
+  if (span >= 16)
+    return level1d_inv_wrap<T>(B, nh, s, ss, d, dst, x, xs, offs, coefs, nb, smin, span,
+                               stream);
+  constexpr int E = 16 / sizeof(T), V = E / 2, full = FI_GROUPS * V;
+  const bool vec = nh % E == 0 && reinterpret_cast<uintptr_t>(s) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(d) % 16 == 0 && ss % E == 0 && dst % E == 0;
+  const bool vout = reinterpret_cast<uintptr_t>(x) % 16 == 0 && xs % E == 0;
+  Inv1dGeom g;
+  g.B = B;
+  g.nh = nh;
+  g.smin = smin;
+  g.span = span;
+  g.sh = vec ? ((smin % E) + E) % E : 0;
+  g.tk = nh > full ? full : nh;
+  g.tiles = (nh + g.tk - 1) / g.tk;
+  g.gsh = ceil_log2((g.tk + V - 1) / V);
+  g.ps = (g.sh + g.tk + span + E - 1) / E * E;
+  // as many short rows as the groups and a stage's two full rows allow
+  const int fit = 2 * (full + FI_SLACK) / (2 * g.ps);
+  g.rpb = std::max(1, std::min(FI_GROUPS >> g.gsh, fit));
+  g.lsh = std::min(ceil_log2(vec ? g.ps / E : g.ps), 8);
+  const bool narrow = span < 8;
+  if (vec)
+    return narrow ? level1d_inv_tiled<T, 8, true>(g, s, ss, d, dst, x, xs, vout, offs, coefs, nb, stream)
+                  : level1d_inv_tiled<T, 16, true>(g, s, ss, d, dst, x, xs, vout, offs, coefs, nb, stream);
+  return narrow ? level1d_inv_tiled<T, 8, false>(g, s, ss, d, dst, x, xs, vout, offs, coefs, nb, stream)
+                : level1d_inv_tiled<T, 16, false>(g, s, ss, d, dst, x, xs, vout, offs, coefs, nb, stream);
 }
 
 }  // namespace wtt

@@ -15,13 +15,35 @@
 // arithmetic type (f32 for f32 and bf16, f64 for f64), so no
 // split-precision emulation is needed.
 //
-// Kernel A: one block per TR x TC tile of output quads and one image
-// (blockIdx.z).  Phase 1 filters the tile's input rows, plus the band's
-// halo rows, along axis 1 straight from global memory into shared memory
-// (one thread per output column pair, wrapped column reads, coalesced in
-// pairs); phase 2 filters those rows along axis 0 out of shared memory and
-// writes LL/LH/HL/HH through four caller-given strided planes, so packed
-// mode writes the details straight into the full-size packed array.
+// Kernel A (level_fw_tiled_kernel) had the same fault as B's first form
+// below: one scalar global load per tap per thread in its row pass, and
+// shared band-table reads per tap in both passes.  Its design is B's:
+// * Staging.  Persistent blocks walk the tiles (TR x TC output quads, TR =
+//   32, or 16 for float64), image by image; each tile's 2 TR - 1 + span
+//   input rows and 2 TC - 1 + span columns go into shared memory by
+//   16-byte cp.async in two stages, the next tile's copies in flight
+//   while this tile's taps run.  The wrap is applied while staging (rows
+//   and 16-byte column words taken with a true modulo), so the tap loops
+//   are wrap-free and 2 x 2 and 4 x 8 levels stay exact.  An input whose
+//   base, strides or width are not whole 16-byte words takes a 4-byte
+//   staging path of the same kernel (VEC = false).
+// * The bands in registers as dense windows over the union of the two
+//   bands' offsets (W = 8 or 16 wide, chosen by the span; masks select
+//   each band's taps).  In the row pass a thread takes V neighbouring
+//   output columns (16 bytes of the arithmetic type), reads the staged
+//   values they need once, in the widest words their alignment allows,
+//   and feeds each to both sums of every tap that reaches it.
+// * The row pass into S / D in the arithmetic type (never rounded), then
+//   the column pass, 16 bytes of S or D per shared read and 16 bytes (8
+//   for bfloat16) per store into each of LL / LH / HL / HH, written
+//   through four caller-given strided planes, so packed mode writes the
+//   details straight into the full-size packed array.
+// * The arithmetic of the first form: one explicit fma per tap, each sum
+//   over its band's taps in table order, so chains of A launches stay
+//   what the tail kernel C computes and two A launches what kernel N
+//   computes (csrc/tail2d.cu, csrc/stage2d.cu), bit for bit.
+// A span of 16 or more (db10, sym5 and up) takes the first form, one block
+// per tile with wrapped taps read from global memory (level_fw_wrap_kernel).
 //
 // Kernel B (level_inv_tiled_kernel): what bounded its first form was the
 // load issue, not the bytes: two scalar global loads per tap per thread
@@ -71,9 +93,11 @@ struct Plane {  // a (B, rows, cols) view with unit column stride
 //   LL[r,c] = sum_i sum_j cs[i] cs[j] x[2r+ds[i], 2c+ds[j]]
 //   LH = (cs rows, cd cols), HL = (cd rows, cs cols), HH = (cd, cd);
 // every index is taken mod m (rows) or mod n (columns).
+// The first form of kernel A, for spans of 16 or more: one block per tile,
+// wrapped taps read from global memory.
 template <typename T>
 __global__ void __launch_bounds__(TC * BY)
-level_fw_kernel(Plane<const T> x, int m, int n, Plane<T> ll, Plane<T> lh,
+level_fw_wrap_kernel(Plane<const T> x, int m, int n, Plane<T> ll, Plane<T> lh,
                 Plane<T> hl, Plane<T> hh, const int* __restrict__ offs,
                 const typename Acc<T>::type* __restrict__ coefs, int ns, int nd,
                 int dmin, int span) {
@@ -218,34 +242,6 @@ level_inv_wrap_kernel(Plane<const T> ll, Plane<const T> lh, Plane<const T> hl,
 // --- kernel B: staged tiles, dense windows in registers ----------------------
 
 constexpr int IT_THREADS = 256;
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-#ifdef __CUDA_ARCH__
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
-#else
-  *static_cast<uint4*>(dst) = *static_cast<const uint4*>(src);
-#endif
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-#ifdef __CUDA_ARCH__
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-#endif
-}
-
-__device__ __forceinline__ void cp_async_wait1() {  // all but the newest group
-#ifdef __CUDA_ARCH__
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-#endif
-}
-
-// 16 bytes of the arithmetic type (4 float, 2 double), and the word that
-// holds V storage elements (16 bytes, or 8 for bfloat16).
-template <typename A> struct Vec16 { using type = float4; static constexpr int n = 4; };
-template <> struct Vec16<double> { using type = double2; static constexpr int n = 2; };
-template <int BYTES> struct Word { using type = uint4; };
-template <> struct Word<8> { using type = uint2; };
 
 // Geometry of the tiled inverse, filled by the host; ops/level2d.py
 // (inv_smem) mirrors the shared bytes.  A tile is TR x TC quads of one
@@ -438,21 +434,310 @@ level_inv_tiled_kernel(Plane<const T> q0, Plane<const T> q1, Plane<const T> q2,
   }
 }
 
+// --- kernel A: staged tiles, dense windows in registers ----------------------
+
+constexpr int FT_THREADS = 256;
+constexpr int FW_PAD = 64;  // staged elements past a stage's last row
+
+// Output rows (quads) per tile of the tiled forward: 32, or 16 for float64,
+// whose staged rows take twice the bytes (three blocks an SM either way).
+template <typename A>
+__host__ __device__ constexpr int fw_tr() {
+  return sizeof(A) == 8 ? 16 : 32;
+}
+
+// Geometry of the tiled forward, filled by the host; ops/level2d.py
+// (fw_smem) mirrors the shared bytes.  A tile is TR x TC output quads of
+// one image; tiles run image by image, row by row.  A stage holds rows =
+// 2 TR - 1 + span input rows, row i being (2 r0 + dmin + i) mod m, of ps
+// storage elements, column e being (2 c0 + dmin - sh + e) mod n, with sh =
+// dmin mod E on the 16-byte path (the row then starts on a 16-byte word
+// of the plane) and 0 on the 4-byte path; ps is a whole number of 16-byte
+// words, and for 4- and 8-byte types an odd number of them, so that the
+// row pass's two rows per quarter warp fall on different banks.
+struct FwGeom {
+  int B, m, n, mh, nh, dmin, span, tiles_c, tiles, rows, ps, sh;
+  __host__ __device__ int stage() const { return rows * ps + FW_PAD; }  // T elements
+};
+
 template <typename T>
-int level_fw(int B, int m, int n, const void* x, int64_t xsb, int64_t xsr,
-             void* const* o, const int64_t* osb, const int64_t* osr,
-             const int* offs, const void* coefs, int ns, int nd, int dmin,
-             int span, cudaStream_t stream) {
+size_t fw_tiled_smem(const FwGeom& g, int nt) {
+  using A = typename Acc<T>::type;
+  return 2 * static_cast<size_t>(g.rows) * TC * sizeof(A) +  // S, D
+         2 * static_cast<size_t>(g.stage()) * sizeof(T) +     // two stages
+         static_cast<size_t>(nt) * (sizeof(A) + sizeof(int));  // band table
+}
+
+// Kernel A's tiled form.  Row pass: each thread takes V neighbouring
+// output columns (16 bytes of the arithmetic type) of one staged row: it
+// reads the 2V - 1 + span staged values they need once, in the widest
+// words their alignment allows, and feeds each to every tap of both sums
+// that reaches it.  Column pass: each thread takes V columns of one output
+// row and reads 16 bytes of S and D per window row for LL / LH (scaling
+// band) and HL / HH (detail band).  The windows run over the union of the
+// two bands' offsets, [dmin, dmin + W); each sum takes its band's taps in
+// table order, which bands.py makes ascending, except a filter's detail
+// band (offsets 1, 0, -1, ...): the kernel reads the detail band's
+// direction from its first two offsets and runs a descending one in a
+// loop of its own.
+template <typename T, int W, bool VEC>
+__global__ void __launch_bounds__(FT_THREADS, 2)
+level_fw_tiled_kernel(Plane<const T> x, Plane<T> o0, Plane<T> o1, Plane<T> o2,
+                      Plane<T> o3, bool vout, FwGeom g, const int* __restrict__ offs,
+                      const typename Acc<T>::type* __restrict__ coefs, int ns, int nd) {
+  using A = typename Acc<T>::type;
+  constexpr int E = 16 / sizeof(T);  // storage elements per 16-byte word
+  constexpr int V = Vec16<A>::n;     // output columns per thread
+  constexpr int GR = TC / V;         // column groups of a row
+  constexpr int NX = 2 * V + W - 1;  // staged values a group may read
+  constexpr int TRf = fw_tr<A>();
+  // two rows per quarter warp where a group's window start moves 32
+  // bytes from one group to the next (float32, float64)
+  constexpr bool SPLIT = 2 * V * sizeof(T) == 32;
+  constexpr int GL = GR / 4;
+  using AV = typename Vec16<A>::type;
+  using TW = typename Word<V * sizeof(T)>::type;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  A* S = reinterpret_cast<A*>(smem_raw);  // [rows][TC] scaling along axis 1
+  A* D = S + g.rows * TC;                 // detail along axis 1
+  T* stg = reinterpret_cast<T*>(D + g.rows * TC);  // two stages
+  const int nt = ns + nd;
+  A* cf = reinterpret_cast<A*>(stg + 2 * g.stage());
+  int* of = reinterpret_cast<int*>(cf + nt);
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int total = g.B * g.tiles;
+
+  // stage tile `t` into stage buffer `s`: a warp per staged row, a lane
+  // per 16-byte word (per element on the 4-byte path); the modulo only
+  // where the tile's window wraps
+  const auto stage = [&](int t, int s) {
+    const int b = t / g.tiles, rem = t - b * g.tiles;
+    const int r0 = (rem / g.tiles_c) * TRf, c0 = (rem % g.tiles_c) * TC;
+    T* dst = stg + s * g.stage();
+    const int rb = 2 * r0 + g.dmin, cb = 2 * c0 + g.dmin - g.sh;
+    const bool rin = rb >= 0 && rb + g.rows <= g.m, cin = cb >= 0 && cb + g.ps <= g.n;
+    const int nw = VEC ? g.ps / E : g.ps;
+    for (int i = tid >> 5; i < g.rows; i += FT_THREADS / 32) {
+      const T* row = x.row(b, rin ? rb + i : wrap(rb + i, g.m));
+      T* d = dst + i * g.ps;
+      for (int k = lane; k < nw; k += 32) {
+        if (VEC)
+          cp_async16(d + k * E, row + (cin ? cb + k * E : wrap(cb + k * E, g.n)));
+        else
+          d[k] = row[cin ? cb + k : wrap(cb + k, g.n)];
+      }
+    }
+  };
+  if (static_cast<int>(blockIdx.x) < total) stage(blockIdx.x, 0);
+  cp_async_commit();
+
+  load_bands(cf, of, coefs, offs, nt, tid, FT_THREADS);
+  __syncthreads();
+  // the dense windows over offsets dmin + d, d < W: cs / ms bit d the
+  // scaling band's tap there, cd / md the detail band's; the detail
+  // band's mask goes to the ascending (mda) or descending (mdd) loop
+  A cs[W], cd[W];
+  unsigned ms = 0, md = 0;
+#pragma unroll
+  for (int d = 0; d < W; ++d) {
+    cs[d] = cd[d] = A(0);
+    for (int k = 0; k < nt; ++k) {
+      if (of[k] - g.dmin != d) continue;
+      if (k < ns) {
+        cs[d] = cf[k];
+        ms |= 1u << d;
+      } else {
+        cd[d] = cf[k];
+        md |= 1u << d;
+      }
+    }
+  }
+  const bool drev = nd > 1 && of[ns + 1] < of[ns];
+  const unsigned mda = drev ? 0u : md, mdd = drev ? md : 0u;
+  const int gran = window_gran(static_cast<long long>(g.sh) * sizeof(T),
+                               2 * V * static_cast<long long>(sizeof(T)), sizeof(T));
+
+  for (int t = blockIdx.x, it = 0; t < total; t += gridDim.x, ++it) {
+    // the next tile's loads go out before this tile's taps
+    if (t + static_cast<int>(gridDim.x) < total) stage(t + gridDim.x, (it + 1) & 1);
+    cp_async_commit();
+    cp_async_wait1();
+    __syncthreads();  // this tile staged; the last tile's column pass done
+    const int b = t / g.tiles, rem = t - b * g.tiles;
+    const int r0 = (rem / g.tiles_c) * TRf, c0 = (rem % g.tiles_c) * TC;
+    const T* sq = stg + (it & 1) * g.stage();
+
+    // axis 1: staged row i, output columns V gi .. V gi + V - 1 -> S, D
+    const int units = (SPLIT ? (g.rows + 1) & ~1 : g.rows) * GR;
+    for (int u = tid; u < units; u += FT_THREADS) {
+      const int i = SPLIT ? ((u >> 2) & 1) | ((u >> 3) / GL) << 1 : u / GR;
+      const int gi = SPLIT ? (u & 3) | ((u >> 3) % GL) << 2 : u % GR;
+      if (i >= g.rows) continue;
+      A xv[NX];
+      load_window(xv, sq + i * g.ps + 2 * V * gi + g.sh, 2 * V - 1 + g.span, gran);
+      __align__(16) A s[V];
+      __align__(16) A d[V];
+#pragma unroll
+      for (int e = 0; e < V; ++e) s[e] = d[e] = A(0);
+#pragma unroll
+      for (int k = 0; k < W; ++k) {
+        if (k > g.span) break;
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          if ((ms >> k) & 1) s[e] = fma(cs[k], xv[2 * e + k], s[e]);
+          if ((mda >> k) & 1) d[e] = fma(cd[k], xv[2 * e + k], d[e]);
+        }
+      }
+      if (mdd) {
+#pragma unroll
+        for (int k = W - 1; k >= 0; --k) {
+#pragma unroll
+          for (int e = 0; e < V; ++e)
+            if ((mdd >> k) & 1) d[e] = fma(cd[k], xv[2 * e + k], d[e]);
+        }
+      }
+      *reinterpret_cast<AV*>(S + i * TC + V * gi) = *reinterpret_cast<const AV*>(s);
+      *reinterpret_cast<AV*>(D + i * TC + V * gi) = *reinterpret_cast<const AV*>(d);
+    }
+    __syncthreads();
+
+    // axis 0: output row r, columns j0 .. j0 + V - 1 of the four planes
+    const int tr = min(TRf, g.mh - r0), ncol = min(TC, g.nh - c0);
+    for (int u = tid; u < TRf * GR; u += FT_THREADS) {
+      const int r = u / GR, j0 = (u % GR) * V;
+      if (r >= tr || j0 >= ncol) continue;
+      A ll[V], lh[V], hl[V], hh[V];
+#pragma unroll
+      for (int e = 0; e < V; ++e) ll[e] = lh[e] = hl[e] = hh[e] = A(0);
+      const A* sp = S + 2 * r * TC + j0;
+      const A* dp = D + 2 * r * TC + j0;
+#pragma unroll
+      for (int k = 0; k < W; ++k) {
+        if (k > g.span) break;
+        if (!(((ms | mda) >> k) & 1)) continue;
+        __align__(16) A a[V];
+        __align__(16) A h[V];
+        *reinterpret_cast<AV*>(a) = *reinterpret_cast<const AV*>(sp + k * TC);
+        *reinterpret_cast<AV*>(h) = *reinterpret_cast<const AV*>(dp + k * TC);
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          if ((ms >> k) & 1) {
+            ll[e] = fma(cs[k], a[e], ll[e]);
+            lh[e] = fma(cs[k], h[e], lh[e]);
+          }
+          if ((mda >> k) & 1) {
+            hl[e] = fma(cd[k], a[e], hl[e]);
+            hh[e] = fma(cd[k], h[e], hh[e]);
+          }
+        }
+      }
+      if (mdd) {
+#pragma unroll
+        for (int k = W - 1; k >= 0; --k) {
+          if (!((mdd >> k) & 1)) continue;
+          __align__(16) A a[V];
+          __align__(16) A h[V];
+          *reinterpret_cast<AV*>(a) = *reinterpret_cast<const AV*>(sp + k * TC);
+          *reinterpret_cast<AV*>(h) = *reinterpret_cast<const AV*>(dp + k * TC);
+#pragma unroll
+          for (int e = 0; e < V; ++e) {
+            hl[e] = fma(cd[k], a[e], hl[e]);
+            hh[e] = fma(cd[k], h[e], hh[e]);
+          }
+        }
+      }
+      const int rr = r0 + r, cc = c0 + j0;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const A* v = q == 0 ? ll : q == 1 ? lh : q == 2 ? hl : hh;
+        const Plane<T>& pl = q == 0 ? o0 : q == 1 ? o1 : q == 2 ? o2 : o3;
+        T* op = pl.row(b, rr) + cc;
+        if (vout && j0 + V <= ncol) {
+          __align__(16) T w[V];
+#pragma unroll
+          for (int e = 0; e < V; ++e) st(w + e, v[e]);
+          *reinterpret_cast<TW*>(op) = *reinterpret_cast<const TW*>(w);
+        } else {
+          for (int e = 0; e < V && j0 + e < ncol; ++e) st(op + e, v[e]);
+        }
+      }
+    }
+  }
+}
+
+template <typename T>
+int level_fw_wrap(int B, int m, int n, const void* x, int64_t xsb, int64_t xsr,
+                  void* const* o, const int64_t* osb, const int64_t* osr,
+                  const int* offs, const void* coefs, int ns, int nd, int dmin,
+                  int span, cudaStream_t stream) {
   using A = typename Acc<T>::type;
   auto plane = [&](int i) { return Plane<T>{static_cast<T*>(o[i]), osb[i], osr[i]}; };
   const int mh = m / 2, nh = n / 2;
   dim3 grid((nh + TC - 1) / TC, (mh + TR - 1) / TR, B);
   size_t smem = 2 * static_cast<size_t>(2 * TR + span) * TC * sizeof(A) +
                 static_cast<size_t>(ns + nd) * (sizeof(A) + sizeof(int));
-  return launch(level_fw_kernel<T>, grid, dim3(TC, BY), smem, stream,
+  return launch(level_fw_wrap_kernel<T>, grid, dim3(TC, BY), smem, stream,
                 Plane<const T>{static_cast<const T*>(x), xsb, xsr}, m, n,
                 plane(0), plane(1), plane(2), plane(3), offs,
                 static_cast<const A*>(coefs), ns, nd, dmin, span);
+}
+
+template <typename T, int W, bool VEC>
+int level_fw_tiled(const FwGeom& g, const void* x, int64_t xsb, int64_t xsr,
+                   void* const* o, const int64_t* osb, const int64_t* osr, bool vout,
+                   const int* offs, const void* coefs, int ns, int nd, size_t smem,
+                   cudaStream_t stream) {
+  using A = typename Acc<T>::type;
+  auto plane = [&](int i) { return Plane<T>{static_cast<T*>(o[i]), osb[i], osr[i]}; };
+  return launch_persistent(level_fw_tiled_kernel<T, W, VEC>, g.B * g.tiles, FT_THREADS,
+                           smem, stream, Plane<const T>{static_cast<const T*>(x), xsb, xsr},
+                           plane(0), plane(1), plane(2), plane(3), vout, g, offs,
+                           static_cast<const A*>(coefs), ns, nd);
+}
+
+// Kernel A: the tiled form for spans below 16 (a window of 8 or 16
+// offsets), 16-byte staging where x's base, strides and width are whole
+// 16-byte words; the first form otherwise.
+template <typename T>
+int level_fw(int B, int m, int n, const void* x, int64_t xsb, int64_t xsr,
+             void* const* o, const int64_t* osb, const int64_t* osr,
+             const int* offs, const void* coefs, int ns, int nd, int dmin,
+             int span, cudaStream_t stream) {
+  using A = typename Acc<T>::type;
+  if (span >= 16)
+    return level_fw_wrap<T>(B, m, n, x, xsb, xsr, o, osb, osr, offs, coefs, ns, nd,
+                            dmin, span, stream);
+  constexpr int E = 16 / sizeof(T), V = Vec16<A>::n;
+  const bool vec = n % E == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   xsb % E == 0 && xsr % E == 0;
+  bool vout = true;
+  for (int i = 0; i < 4; ++i)
+    vout = vout && reinterpret_cast<uintptr_t>(o[i]) % (V * sizeof(T)) == 0 &&
+           osb[i] % V == 0 && osr[i] % V == 0;
+  constexpr int TRf = fw_tr<A>();
+  FwGeom g;
+  g.B = B;
+  g.m = m;
+  g.n = n;
+  g.mh = m / 2;
+  g.nh = n / 2;
+  g.dmin = dmin;
+  g.span = span;
+  g.tiles_c = (g.nh + TC - 1) / TC;
+  g.tiles = (g.mh + TRf - 1) / TRf * g.tiles_c;
+  g.rows = 2 * TRf - 1 + span;
+  g.sh = vec ? ((dmin % E) + E) % E : 0;
+  g.ps = (g.sh + 2 * TC - 1 + span + E - 1) / E * E;
+  if (2 * V * sizeof(T) == 32 && g.ps * sizeof(T) % 32 == 0) g.ps += E;
+  if (static_cast<int64_t>(B) * g.tiles > 2147483647)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  const size_t smem = fw_tiled_smem<T>(g, ns + nd);
+  const bool narrow = span < 8;
+  if (vec)
+    return narrow ? level_fw_tiled<T, 8, true>(g, x, xsb, xsr, o, osb, osr, vout, offs, coefs, ns, nd, smem, stream)
+                  : level_fw_tiled<T, 16, true>(g, x, xsb, xsr, o, osb, osr, vout, offs, coefs, ns, nd, smem, stream);
+  return narrow ? level_fw_tiled<T, 8, false>(g, x, xsb, xsr, o, osb, osr, vout, offs, coefs, ns, nd, smem, stream)
+                : level_fw_tiled<T, 16, false>(g, x, xsb, xsr, o, osb, osr, vout, offs, coefs, ns, nd, smem, stream);
 }
 
 template <typename T>

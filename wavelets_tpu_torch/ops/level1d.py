@@ -13,7 +13,12 @@ writes the merged ``(B, 2nh)`` rows.
 Both are driven by the wavelet's bands (ops/bands.py), as the 2-D kernels
 are; the plain versions are the 1-D passes of ops/level2d.py.  They
 replace the TPU kernels of ``wavelets_tpu/ops/pallas/dwt1d.py`` and
-``wide1d.py`` (see csrc/level1d.cu).  A tensor on the CPU takes the plain
+``wide1d.py`` (see csrc/level1d.cu).  The inverse runs on persistent
+blocks that stage tiles of s and d (a stretch of one row, or several short
+rows) with 16-byte copies, the next tile's while this one's taps run, with
+the bands in registers as windows of 8 or 16 offsets
+(:func:`inv1d_window`); a span of 16 or more takes its first form, one
+block per tile.  A tensor on the CPU takes the plain
 PyTorch version (``level1d_fw_plain``, ``level1d_inv_plain``); a CUDA
 tensor launches the kernel or raises.  Arithmetic runs in float32 for
 float32 and bfloat16 storage (bfloat16 outputs are rounded once per level)
@@ -27,14 +32,22 @@ import ctypes
 import torch
 
 from . import build
-from .bands import acc_dtype, band_table
+from .bands import acc_dtype, band_table, synthesis_bands
 from .level2d import DTYPES, _analysis, _check_disjoint, _synthesis
 
 __all__ = ["DTYPES", "LAUNCHES", "PLAIN_CALLS", "level1d_fw",
-           "level1d_fw_plain", "level1d_inv", "level1d_inv_plain"]
+           "level1d_fw_plain", "level1d_inv", "level1d_inv_plain",
+           "inv1d_window", "inv1d_smem"]
 
 LAUNCHES = {"level1d_fw": 0, "level1d_inv": 0}
 PLAIN_CALLS = {"level1d_fw": 0, "level1d_inv": 0}
+
+# kernel F (csrc/level1d.cu): the tiled form's window bounds; its pair
+# groups per tile, staged slack per row and pad per stage; the first form's
+# output pairs per block
+INV1D_WINDOWS = (8, 16)
+_FI_GROUPS, _FI_SLACK, _FI_PAD = 512, 32, 64
+_F_TK = 256
 
 
 def check_rows(t, name, shape=None, dtype=None, device=None):
@@ -109,6 +122,33 @@ def level1d_inv_plain(s, d, wt, out=None):
 
 
 # --- kernels -----------------------------------------------------------------
+
+def inv1d_window(wt) -> int:
+    """The window bound of kernel F's tiled form for ``wt``'s synthesis
+    bands: the smallest of INV1D_WINDOWS above their span, or 0 where the
+    span is 16 or more and the first form runs.  csrc/level1d.cu
+    (level1d_inv) makes the same choice."""
+    offs = [int(o) for d, _ in synthesis_bands(wt) for o in d]
+    span = max(offs) - min(offs)
+    return next((w for w in INV1D_WINDOWS if span < w), 0)
+
+
+def inv1d_smem(wt, dtype) -> int:
+    """Shared bytes of one block of kernel F in the form
+    :func:`inv1d_window` picks; mirrors csrc/level1d.cu: the tiled form's
+    two stages, each room for the s and d rows of a full tile whatever the
+    shape (inv1d_tiled_smem), or the first form's windows for a row of at
+    least ``_F_TK`` pairs."""
+    bands = synthesis_bands(wt)
+    offs = [int(o) for d, _ in bands for o in d]
+    acc = acc_dtype(dtype).itemsize
+    table = len(offs) * (acc + 4)
+    if not inv1d_window(wt):
+        return 2 * (_F_TK + max(offs) - min(offs)) * acc + table
+    size = torch.empty((), dtype=dtype).element_size()
+    stage = 2 * (_FI_GROUPS * (8 // size) + _FI_SLACK) + _FI_PAD
+    return 2 * stage * size + table
+
 
 def _launch_fw(x, wt, s, d, stream):
     table = band_table(wt, False, x.dtype, x.device)

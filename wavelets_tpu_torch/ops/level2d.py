@@ -10,12 +10,12 @@ the caller wishes, and writes the merged ``(B, 2mh, 2nh)`` array.
 
 Both are driven by the wavelet's bands (ops/bands.py), so one kernel serves
 filter and lifting wavelets.  They replace the TPU kernels of
-``wavelets_tpu/ops/pallas/mxu2d.py`` (see csrc/level2d.cu).  The inverse
-runs on persistent blocks that stage each tile of the four quadrants into
-shared memory with 16-byte copies, the next tile's while this one's taps
-run, and keep the bands in registers as windows of 8 or 16 offsets per
-source (:func:`inv_window`); a span of 16 or more takes its first form,
-one block per tile with wrapped taps.  A tensor on
+``wavelets_tpu/ops/pallas/mxu2d.py`` (see csrc/level2d.cu).  Both run on
+persistent blocks that stage each tile (the input's, or the four
+quadrants') into shared memory with 16-byte copies, the next tile's while
+this one's taps run, and keep the bands in registers as windows of 8 or 16
+offsets (:func:`fw_window`, :func:`inv_window`); a span of 16 or more takes
+the first form, one block per tile with wrapped taps.  A tensor on
 the CPU takes the plain PyTorch version (``level_fw_plain``,
 ``level_inv_plain``); a CUDA tensor launches the kernel or raises.
 Arithmetic runs in float32 for float32 and bfloat16 storage (bfloat16
@@ -44,6 +44,8 @@ PLAIN_CALLS = {"level_fw": 0, "level_inv": 0}
 _TR, _TC = 32, 32
 SMEM_LIMIT = 232448   # bytes of shared memory a block may use on the H100
 INV_WINDOWS = (8, 16)   # the tiled inverse's window bounds (csrc/level2d.cu)
+FW_WINDOWS = (8, 16)    # the tiled forward's window bounds
+_FW_PAD = 64            # staged elements past a stage's last row (FW_PAD)
 
 
 def _check_plane(t, name, shape, dtype, device):
@@ -254,9 +256,44 @@ def inv_smem(wt, dtype) -> int:
     return 2 * rows * 2 * _TC * acc + 2 * 4 * rows * ps * size + table
 
 
+def _ana_reach(wt):
+    """(smallest offset, span) of ``wt``'s analysis bands."""
+    ds, _, dd, _ = level_bands(wt)
+    offs = [int(o) for o in ds] + [int(o) for o in dd]
+    return min(offs), max(offs) - min(offs)
+
+
+def fw_window(wt) -> int:
+    """The window bound of the tiled forward for ``wt``'s analysis bands:
+    the smallest of FW_WINDOWS above their span (both bands' offsets fit
+    it), or 0 where the span is 16 or more and the first form runs.
+    csrc/level2d.cu (level_fw) makes the same choice."""
+    span = _ana_reach(wt)[1]
+    return next((w for w in FW_WINDOWS if span < w), 0)
+
+
+def fw_smem(wt, dtype) -> int:
+    """Shared bytes of one block of the forward, in the form
+    :func:`fw_window` picks; mirrors fw_tiled_smem in csrc/level2d.cu (on
+    the 16-byte path, whose staged row is the wider)."""
+    dmin, span = _ana_reach(wt)
+    ds, _, dd, _ = level_bands(wt)
+    acc = acc_dtype(dtype).itemsize
+    table = (len(ds) + len(dd)) * (acc + 4)
+    if not fw_window(wt):
+        return 2 * (2 * _TR + span) * _TC * acc + table
+    size = torch.empty((), dtype=dtype).element_size()
+    e, v = 16 // size, 16 // acc
+    rows = 2 * (16 if acc == 8 else 32) - 1 + span
+    ps = -(-(dmin % e + 2 * _TC - 1 + span) // e) * e
+    if 2 * v * size == 32 and ps * size % 32 == 0:
+        ps += e
+    return 2 * rows * _TC * acc + 2 * (rows * ps + _FW_PAD) * size + table
+
+
 def _launch_fw(x, wt, outs, stream):
     table = band_table(wt, False, x.dtype, x.device)
-    if _smem(table, 2 * _TR + table.span, _TC) > SMEM_LIMIT:
+    if fw_smem(wt, x.dtype) > SMEM_LIMIT:
         raise ValueError(f"level_fw: the bands of {wt.name} reach too far "
                          "for the kernel's shared-memory tile")
     B, m, n = x.shape
