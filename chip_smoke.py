@@ -28,11 +28,18 @@ exits non-zero:
                   forms (windows of 8 and 16, the first form: cdf97, db4,
                   sym5, db10) on its 16- and 4-byte staging paths, on 2^19
                   rows of 2 samples, 700 rows of 2, (5, 1000), (3, 4096)
-                  and one 2^20 row.
+                  and one 2^20 row; E's forms (windows of 16 and 8, the
+                  first form: cdf97, db4, haar, sym5, db10) on the same
+                  rows and both paths, the 4-byte path writing into the
+                  halves of odd-width rows.
   2c. kernels3d -- the axis-0 kernels (forward I, inverse J, and J reading
                   a separate corner) the same way, on (B, R, C) views with
                   gaps between rows and batch items, R = 2, narrow C and
-                  the 3-D driver's permuted layouts.
+                  the 3-D driver's permuted layouts; J's forms (windows of
+                  8 and 16, the first form: cdf97, db4, coif4, db10) on
+                  contiguous planes and on the 3-D driver's permuted
+                  planes with a corner whose width is no whole 16-byte
+                  word, on both staging paths, Rh = 1 and narrow C.
   2d. kernelsmodwt -- the MODWT kernels (forward K, inverse M) the same
                   way for four filter wavelets (db4, haar, sym6, coif8: the
                   8-, 16- and 32-tap templates),
@@ -46,9 +53,11 @@ exits non-zero:
                   a strided input; rows beyond the plan must be refused.
   2e. kernelshalo -- kernels I and J in halo mode: with halos equal to the
                   wrapped rows they must equal the periodic kernels bit for
-                  bit; with random halos (taller than the reach, strided)
-                  they are held against their plain versions; R = 2H,
-                  narrow C and strided views, four wavelets, three dtypes.
+                  bit; with random halos (taller than the reach, strided;
+                  and contiguous, J's 16-byte staging path, the halo below
+                  d zero rows tall where the reach is 0) they are held
+                  against their plain versions; R = 2H, narrow C and
+                  strided views, four wavelets, three dtypes.
   2f. kernelsstage -- kernel N (levels 1 and 2 in one launch) against its
                   plain version: haar, cdf97, db4 and coif4 (a long table),
                   1024^2, a strided ragged 1000 x 1544, a batch of 2 and
@@ -133,11 +142,23 @@ exits non-zero:
                   of the 16384 rows of 16384 (cdf97, db4) and of one
                   shard's 4096 rows, and modwt_fw_levels at (512, 8192) db4 L6 (f32 and bf16, and
                   f32 with each cluster size that fits) beside the chain of
-                  K launches and the library calls.
+                  K launches and the library calls; kernels J and E at
+                  their paths' level-1 shapes (J at 16384^2, in halo mode
+                  at one shard's (4096, 16384), at 256^3; E at 2^24 and
+                  over the 16384 rows of 16384, cdf97 and db4), by
+                  profiler time and CUDA events; kernel E's two forms by
+                  level size, which set its size bound.
+  5d. forms    -- which form of E, J and J in halo mode each wavelet
+                  launches, read from the card by the profiler: the tiled
+                  form below a span of 16 (E: also from FW1D_MIN_PAIRS
+                  output pairs a level), the first form otherwise.  It runs
+                  after the traces: with these short profiler sessions in
+                  phase 2, every later trace lost one launch.
 
 Then the run's wall time, nvidia-smi's line again, the per-kernel JSON line
 (a row per kernel, and one per TPU kernel that a route of 3g maps onto one
-of them), and last {"ok": true, "device": {...}}.
+of them; "redesigned" names a kernel's Hopper form: "tiled" or "cluster"),
+and last {"ok": true, "device": {...}}.
 """
 
 import contextlib
@@ -181,6 +202,13 @@ WAVELETS_TAIL = (("coif4", "filter"), ("db10", "filter"))
 # the first form (db10)
 INV1D_WAVELETS = (("cdf97", "lifting"), ("db4", "filter"),
                   ("sym5", "filter"), ("db10", "filter"))
+# kernel E's forms: windows of 16 (cdf97, db4) and 8 offsets (haar), the
+# first form (sym5, db10); kernel J's: windows of 8 (cdf97, db4) and 16
+# offsets (coif4), the first form (db10)
+FW1D_WAVELETS = (("cdf97", "lifting"), ("haar", "lifting"),
+                 ("db4", "filter"), ("sym5", "filter"), ("db10", "filter"))
+INV_A0_WAVELETS = (("cdf97", "lifting"), ("db4", "filter"),
+                   ("coif4", "filter"), ("db10", "filter"))
 SIZE, LEVELS = 16384, 8
 # the 1-D main paths: name, shape, wavelet, levels, packet transform?
 PATHS1D = (("batched_4096x4096_db4_L8", (4096, 4096), ("db4", "filter"), 8,
@@ -297,6 +325,39 @@ def launched(name, fn):
 
 def wavelet(name, kind):
     return w.wavelet(w.wt.ALL_CLASSES[name], kind)
+
+
+def kernel_name(e):
+    """A profiler event's kernel name without namespace, template
+    arguments or parameters."""
+    return e.name.split("<")[0].split("(")[0].split("::")[-1]
+
+
+def kernel_names(fn):
+    """The names of the device kernels that ``fn()`` launches, read from
+    the card: a torch.profiler trace of three calls after one unprofiled
+    call (the union of their names: the profiler can drop a trace's first
+    launch).  It tells which form of a kernel a wrapper chose."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+    names = {kernel_name(e) for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA}
+    require(names, "the profiler recorded the call's kernels")
+    return names
+
+
+def require_form(fn, want, what):
+    """Require that ``fn()`` launches the kernel ``want`` and nothing
+    else on the card; returns its name."""
+    got = kernel_names(fn)
+    require(got == {want}, f"{what} launches {want}: the card ran {got}")
+    return want
 
 
 @contextlib.contextmanager
@@ -834,6 +895,7 @@ def phase_kernels1d(dev):
                 check_all("kernels1d", errs, (wname, B, n), dt, tol, worst)
                 cases += 1
     cases += check_inv1d(dev, rng, worst)
+    cases += check_fw1d(dev, rng, worst)
     emit({"phase": "kernels1d", "cases": cases,
           "rows": [list(r) for r in rows],
           "tolerance": {str(k)[6:]: v for k, v in TOL.items()},
@@ -875,6 +937,104 @@ def check_inv1d(dev, rng, worst):
     return cases
 
 
+def check_fw1d(dev, rng, worst):
+    """Kernel E's forms against its plain version: the window of 16
+    (cdf97, db4) and of 8 offsets (haar) and the first form (sym5, db10),
+    on the 16-byte staging path (rows whose base, row stride and length
+    are whole 16-byte words, into fresh planes) and on the 4-byte path
+    (rows one element in, into the two halves of rows of odd width: the
+    detail plane's base and row stride are no whole words, so it takes
+    4-byte stores); the short rows of a deep packet depth (2^19 rows of 2
+    samples, 700 of 2), several rows to a tile, and long rows cut into
+    tiles.  A level of fewer than level1d.FW1D_MIN_PAIRS output pairs
+    takes the first form through the wrapper; where the wavelet has a
+    window, the tiled form (launched with a bound of 0 pairs) is held
+    there too, so that both forms meet every shape (phase 5d reads from
+    the card which form the wrapper launches)."""
+    cases = 0
+    nan = float("nan")
+    rows = ((1 << 19, 2), (700, 2), (5, 1000), (3, 4096), (1, 1 << 20))
+    stream = torch.cuda.current_stream().cuda_stream
+    for (wname, kind) in FW1D_WAVELETS:
+        wt = wavelet(wname, kind)
+        tiled = bool(level1d.fw1d_window(wt))
+        for dt, tol in TOL.items():
+            for B, n in rows:
+                h = n // 2
+                errs = {}
+                for path in ("16", "4"):
+                    if path == "16":
+                        x = torch.from_numpy(rng.standard_normal((B, n))).to(
+                            dev).to(dt)
+                        s = torch.empty((B, h), dtype=dt, device=dev)
+                        d = torch.empty((B, h), dtype=dt, device=dev)
+                    else:
+                        x = torch.from_numpy(rng.standard_normal(
+                            (B, n + 3))).to(dev).to(dt)[:, 1:n + 1]
+                        y = torch.full((B, n + 1), nan, dtype=dt, device=dev)
+                        s, d = y[:, :h], y[:, h + 1:]
+                    rs, rd = level1d.level1d_fw_plain(x, wt)
+                    launched("level1d_fw",
+                             lambda: level1d.level1d_fw(x, wt, s, d))
+                    errs[f"level1d_fw_{path}byte"] = max(rel_err(s, rs),
+                                                         rel_err(d, rd))
+                    if tiled and B * h < level1d.FW1D_MIN_PAIRS:
+                        s.fill_(nan)
+                        d.fill_(nan)
+                        level1d._launch_fw(x, wt, s, d, stream, min_pairs=0)
+                        torch.cuda.synchronize()
+                        errs[f"level1d_fw_tiled_{path}byte"] = max(
+                            rel_err(s, rs), rel_err(d, rd))
+                check_all("kernels1d", errs, (wname, B, n), dt, tol, worst)
+                cases += 1
+    return cases
+
+
+def check_inv_a0(dev, rng, worst):
+    """Kernel J's forms against its plain version: the window of 8 (cdf97,
+    db4) and of 16 offsets (coif4) and the first form (db10), on the
+    16-byte staging path (contiguous planes, and the 3-D driver's permuted
+    planes with a corner of its own layout; C a whole number of words)
+    and on the 4-byte path (C not: the same calls), Rh = 1 and narrow C
+    (several batch items to a strip) included; a corner whose width is no
+    whole number of words takes the words across it element by
+    element."""
+    cases = 0
+    shapes = ((1, 1, 8), (3, 1, 5), (5, 4, 3), (2, 4, 40), (3, 48, 160),
+              (64, 32, 64), (2, 1024, 512))
+    for (wname, kind) in INV_A0_WAVELETS:
+        wt = wavelet(wname, kind)
+        for dt, tol in TOL.items():
+            for B, Rh, C in shapes:
+                errs = {}
+                a = torch.from_numpy(rng.standard_normal((B, Rh, C))).to(
+                    dev).to(dt)
+                d = torch.from_numpy(rng.standard_normal((B, Rh, C))).to(
+                    dev).to(dt)
+                ref = axis0.axis0_inv_plain(a, d, wt)
+                got = launched("axis0_inv", lambda: axis0.axis0_inv(a, d, wt))
+                errs["axis0_inv_contiguous"] = rel_err(got, ref)
+                # the 3-D driver: a and d the halves of a (2 Rh, B, C)
+                # sub-cube, the corner the deeper level's (Bc, Rh, Cc)
+                # result in the same layout, the output a scratch
+                y = torch.from_numpy(rng.standard_normal((2 * Rh, B, C))).to(
+                    dev).to(dt)
+                pa, pd = y[:Rh].permute(1, 0, 2), y[Rh:].permute(1, 0, 2)
+                corner = torch.from_numpy(rng.standard_normal(
+                    (Rh, (B + 1) // 2, C))).to(dev).to(dt)[
+                        :, :, :C - C // 3].permute(1, 0, 2)
+                out = torch.full((2 * Rh, B, C), float("nan"), dtype=dt,
+                                 device=dev).permute(1, 0, 2)
+                ref = axis0.axis0_inv_plain(pa, pd, wt, corner=corner)
+                launched("axis0_inv", lambda: axis0.axis0_inv(
+                    pa, pd, wt, out=out, corner=corner))
+                errs["axis0_inv_3d_corner"] = rel_err(out, ref)
+                check_all("kernels3d", errs, (wname, B, Rh, C), dt, tol,
+                          worst)
+                cases += 1
+    return cases
+
+
 def phase_kernels3d(dev):
     rng = np.random.default_rng(3)
     worst = {}
@@ -908,6 +1068,7 @@ def phase_kernels3d(dev):
                 check_all("kernels3d", errs, (wname, B, R, C), dt, tol,
                           worst)
                 cases += 1
+    cases += check_inv_a0(dev, rng, worst)
     emit({"phase": "kernels3d", "cases": cases,
           "shapes": [list(r) for r in SHAPES_A0],
           "tolerance": {str(k)[6:]: v for k, v in TOL.items()},
@@ -1081,6 +1242,17 @@ def phase_kernelshalo(dev, shapes=SHAPES_HALO):
                 gi = launched("axis0_inv_halo", lambda: axis0.axis0_inv(
                     pa, pd, wt, halos=halos))
                 errs["axis0_inv_halo"] = rel_err(gi, ri)
+                # J's 16-byte staging path (where C is whole words):
+                # contiguous planes and halos, the one below d zero rows
+                # tall where the reach is 0 (haar)
+                halos = tuple(
+                    torch.empty((B, hgt, C), dtype=dt, device=dev).copy_(
+                        torch.from_numpy(rng.standard_normal((B, hgt, C))))
+                    for hgt in (ia + 1, ib + 2, ia + 1, ib))
+                ri = axis0.axis0_inv_plain(a, d, wt, halos=halos)
+                gi = launched("axis0_inv_halo", lambda: axis0.axis0_inv(
+                    a, d, wt, halos=halos))
+                errs["axis0_inv_halo_aligned"] = rel_err(gi, ri)
                 check_all("kernelshalo", errs, (wname, B, R, C), dt, tol,
                           worst)
                 cases += 1
@@ -1718,6 +1890,151 @@ def tail_times(x, rows):
           "cluster_sizes": tail_cluster_times(dev, wt)})
 
 
+def j_e_times(x, xs):
+    """Kernels J and E at their paths' level-1 shapes, by profiler time
+    (device us per call) and CUDA events (ms): J at 16384^2 (the split
+    inverse's call: the packed level's halves into a scratch), J in halo
+    mode at one shard's level (4096, 16384) with the wrapped rows as
+    halos, J at level 1 of the 256^3 volume (the 3-D inverse's layout),
+    E at level 1 of the 2^24 signal and over the 16384 rows of 16384
+    (cdf97 and db4, the split forward's call: [s | d] per row)."""
+    cdf, db4 = w.wavelet(w.wt.cdf97, "lifting"), wavelet("db4", "filter")
+    out, h = {}, SIZE // 2
+
+    def timed(tag, fn, xt):
+        fn()
+        torch.cuda.synchronize()
+        out[tag] = {"device_us": device_us(fn),
+                    "ms": P.med3(lambda _: fn(), xt, 10) * 1e3}
+
+    y = x[None]
+    sc = torch.empty_like(y)
+    timed("J_16384x16384_level1", lambda: axis0.axis0_inv(
+        y[:, :h], y[:, h:], cdf, out=sc), y)
+    rows_ = SIZE // SHARDS
+    ia, ib = axis0.halo_reach(cdf, True)
+    a, d = y[:, :rows_ // 2], y[:, h:h + rows_ // 2]
+    halos = (a[:, rows_ // 2 - ia:], a[:, :ib], d[:, rows_ // 2 - ia:],
+             d[:, :ib])
+    xr = sc[:, :rows_]
+    timed("J_halo_4096x16384", lambda: axis0.axis0_inv(
+        a, d, cdf, out=xr, halos=halos), xr)
+    x3 = xs[(SIZE3D,) * 3]
+    D = x3.shape[0]
+    s3 = torch.empty_like(x3)
+    timed("J_256cubed_level1", lambda: axis0.axis0_inv(
+        dwt3d._rows(x3[: D // 2]), dwt3d._rows(x3[D // 2:]), cdf,
+        out=dwt3d._rows(s3)), x3)
+    del s3
+    x24 = xs[(1 << 24,)][None]
+    s24, d24 = torch.empty_like(x24[:, ::2]), torch.empty_like(x24[:, ::2])
+    timed("E_2e24_level1", lambda: level1d.level1d_fw(x24, cdf, s24, d24),
+          x24)
+    del s24, d24
+    for tag, wt in (("cdf97", cdf), ("db4", db4)):
+        timed(f"E_16384x16384_{tag}", lambda: level1d.level1d_fw(
+            x, wt, sc[0, :, :h], sc[0, :, h:]), x)
+    del sc
+    torch.cuda.empty_cache()
+    return out
+
+
+def e_form_times(dev):
+    """Kernel E's two forms by level size, device us per call from the
+    profiler: the tiled form (launched with a size bound of 0 pairs) and
+    the first form (a bound above every level) over levels of 2^12 to
+    2^20 output pairs, as one row and as rows of 64 samples (the packet
+    transform's middle depths), cdf97 (window 16) and haar (window 8),
+    f32; each the less of two readings, taken tiled, first, tiled, first
+    (single readings jumped by up to 1.5x between neighbouring sizes).
+    ``crossover_pairs`` gives, for each series, the smallest size of the
+    sweep from which the tiled form is no slower at that size and every
+    larger one (None: slower at the largest), beside the bound the
+    wrapper uses (level1d.FW1D_MIN_PAIRS)."""
+    rng = np.random.default_rng(9)
+    stream = torch.cuda.current_stream().cuda_stream
+    out, cross = {}, {}
+    for wname, kind in (("cdf97", "lifting"), ("haar", "lifting")):
+        wt = wavelet(wname, kind)
+        for width in (None, 64):
+            series = []
+            for k in range(12, 21):
+                pairs = 1 << k
+                B, n = (1, 2 * pairs) if width is None else (
+                    2 * pairs // width, width)
+                x = torch.from_numpy(rng.standard_normal((B, n)).astype(
+                    np.float32)).to(dev)
+                s, d = level1d.level1d_fw_plain(x, wt)
+                us = [device_us(lambda: level1d._launch_fw(
+                    x, wt, s, d, stream, bound))
+                    for bound in (0, 1 << 40, 0, 1 << 40)]
+                series.append([pairs, min(us[0::2]), min(us[1::2])])
+            at = len(series)
+            while at and series[at - 1][1] <= series[at - 1][2]:
+                at -= 1
+            tag = f"{wname}_{'row' if width is None else 'rows_of_64'}"
+            out[tag] = series
+            cross[tag] = series[at][0] if at < len(series) else None
+    return {"pairs_tiled_us_first_us": out, "crossover_pairs": cross,
+            "FW1D_MIN_PAIRS": level1d.FW1D_MIN_PAIRS}
+
+
+def phase_forms(dev):
+    """Phase 5d: which form of kernels E and J each wavelet launches, read
+    from the card (the kernel's name in a profiler trace), against what
+    the C selectors should pick.  E (FW1D_WAVELETS) on one 2^20 row, the
+    tiled form for a window (cdf97, haar, db4), the first form otherwise
+    (sym5, db10), and on (3, 4096), below FW1D_MIN_PAIRS, the first form
+    for every wavelet (the tiled one with a bound of 0 pairs); J
+    (INV_A0_WAVELETS) on a (2, 1024, 512) level, the tiled form for
+    cdf97, db4 and coif4, the first for db10; J in halo mode
+    (WAVELETS_HALO and db10) on a (2, 48, 160) level with its wrapped
+    rows as halos, which must equal the periodic J bit for bit."""
+    rng = np.random.default_rng(8)
+    stream = torch.cuda.current_stream().cuda_stream
+    forms = {}
+
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev)
+    first, tiled_name = "level1d_fw_kernel", "level1d_fw_tiled_kernel"
+    for (wname, kind) in FW1D_WAVELETS:
+        wt = wavelet(wname, kind)
+        tiled = bool(level1d.fw1d_window(wt))
+        for B, n in ((1, 1 << 20), (3, 4096)):
+            x = randn(B, n)
+            s, d = level1d.level1d_fw(x, wt)
+            big = B * n // 2 >= level1d.FW1D_MIN_PAIRS
+            forms[f"E {wname} {(B, n)}"] = require_form(
+                lambda: level1d.level1d_fw(x, wt, s, d),
+                tiled_name if tiled and big else first, f"E {wname} {(B, n)}")
+            if tiled and not big:
+                forms[f"E {wname} {(B, n)} bound 0"] = require_form(
+                    lambda: level1d._launch_fw(x, wt, s, d, stream, 0),
+                    tiled_name, f"E {wname} {(B, n)} with a bound of 0")
+    for (wname, kind) in INV_A0_WAVELETS:
+        wt = wavelet(wname, kind)
+        a, d = randn(2, 1024, 512), randn(2, 1024, 512)
+        forms[f"J {wname}"] = require_form(
+            lambda: axis0.axis0_inv(a, d, wt),
+            "axis0_inv_tiled_kernel" if axis0.inv_window(wt)
+            else "axis0_inv_kernel", f"J {wname}")
+    for (wname, kind) in WAVELETS_HALO + (("db10", "filter"),):
+        wt = wavelet(wname, kind)
+        ia, ib = axis0.halo_reach(wt, True)
+        a, d = randn(2, 48, 160), randn(2, 48, 160)
+        halos = (a[:, 48 - ia:], a[:, :ib], d[:, 48 - ia:], d[:, :ib])
+        forms[f"J-halo {wname}"] = require_form(
+            lambda: axis0.axis0_inv(a, d, wt, halos=halos),
+            "axis0_inv_tiled_kernel" if axis0.inv_window(wt)
+            else "axis0_inv_kernel", f"J-halo {wname}")
+        require(torch.equal(axis0.axis0_inv(a, d, wt, halos=halos),
+                            axis0.axis0_inv(a, d, wt)),
+                f"halo inv with wrapped halos equals the periodic kernel: "
+                f"{wname} (2, 48, 160)")
+    emit({"phase": "forms", "forms": forms})
+
+
 def profiled_times(x, xs, rows):
     """Phase 5c, after the trace: kernels A (f32, bf16) and B at 16384^2
     level 1 by profiler time, F at level 1 of the 2^24 signal, of the 16384
@@ -1757,6 +2074,10 @@ def profiled_times(x, xs, rows):
             sd[:, :h], sd[:, h:], wt, out=xr))
         del sd, xr
     rows["level1d_inv"]["device_us"] = f_us["2e24"]
+    je = j_e_times(x, xs)
+    rows["axis0_inv"]["device_us"] = je["J_256cubed_level1"]["device_us"]
+    rows["axis0_inv_halo"]["device_us"] = je["J_halo_4096x16384"]["device_us"]
+    rows["level1d_fw"]["device_us"] = je["E_2e24_level1"]["device_us"]
     xm, L = xs[MODWT_SHAPE], MODWT_LEVELS
     B, N = xm.shape
     W = modwt1d.modwt_fw_levels(xm, db4, L)
@@ -1783,6 +2104,8 @@ def profiled_times(x, xs, rows):
           "level_fw_16384_level1_device_us": rows["level_fw"]["device_us"],
           "level_fw_16384_level1_bf16_device_us": fw_bf16_us,
           "level1d_inv_level1_device_us": f_us,
+          "j_e_level1": je,
+          "e_forms_by_size": e_form_times(x.device),
           "modwt_fw_levels_512x8192_L6": {
               "f32_device_us": r["device_us"], "bf16_device_us": bf16_us,
               "chain_device_us": r["chain_device_us"],
@@ -2135,9 +2458,9 @@ def phase_timesroutes(x):
         rec.update(fw_launch_us=tf["launch_us"],
                    inv_launch_us=ti["launch_us"])
         if routes[0] == "stage":
-            require(any(k == "stage2_fw_kernel" for k, _ in tf["launch_us"]),
+            require("stage2_fw_kernel" in tf["kernels"],
                     f"the stage forward's trace shows kernel N: "
-                    f"{tf['launch_us']}")
+                    f"{tf['kernels']}")
         out[name] = rec
     copy_ms = out["default"]["copy_ms"]
 
@@ -2219,8 +2542,10 @@ def phase_timesroutes(x):
 
 def trace(fn, x, calls=5):
     """torch.profiler over ``calls`` calls of ``fn(x)``: the device time of
-    each of this repo's kernel launches in the first call, and the device's
-    busy time per call (the union of its events).  The idle share is one
+    each of this repo's kernel launches in the last call (the profiler can
+    drop a trace's first launch: a full run once missed the first call's
+    kernel N), the names of all its kernels, and the device's busy time
+    per call (the union of its events).  The idle share is one
     less the busy time over the same calls' time with the profiler off
     (CUDA events), since the profiler slows the host: the mean of one
     measurement just before the profiled calls and one just after.  The
@@ -2259,9 +2584,13 @@ def trace(fn, x, calls=5):
             f"device busy {busy / calls:.1f} us per call within the call's "
             f"{before_us:.1f} / {after_us:.1f} us")
     call_us = (before_us + after_us) / 2
-    return {"launch_us": [[e.name.split("<")[0].split("(")[0].split("::")[-1],
-                           round(e.time_range.end - e.time_range.start, 2)]
-                          for e in ours[:len(ours) // calls]],
+
+    # the last call's launches (a dropped launch shortens the trace by one)
+    last = ours[len(ours) - -(-len(ours) // calls):]
+    return {"launch_us": [[kernel_name(e), round(e.time_range.end
+                                                 - e.time_range.start, 2)]
+                          for e in last],
+            "kernels": sorted({kernel_name(e) for e in ours}),
             "busy_us_per_call": busy / calls, "call_us": call_us,
             "call_us_before_after": [before_us, after_us],
             "idle_share": 1 - busy / calls / call_us}
@@ -2353,6 +2682,7 @@ def main():
     phase_trace(x, xs)
     tail_times(x, rows)
     profiled_times(x, xs, rows)
+    phase_forms(dev)
     src = {"level_fw": "level2d.cu", "level_inv": "level2d.cu",
            "tail_fw": "tail2d.cu", "tail_inv": "tail2d.cu",
            "level1d_fw": "level1d.cu", "level1d_inv": "level1d.cu",
@@ -2378,6 +2708,14 @@ def main():
                 "axis0_fw_halo": "wavelets_tpu/ops/pallas/axis0.py:318",
                 "axis0_inv_halo": "wavelets_tpu/ops/pallas/axis0.py:417",
                 "stage2_fw": "wavelets_tpu/ops/pallas/stage2d.py:154"}
+    # the kernels redesigned for Hopper and their form: persistent blocks
+    # staging 16-byte tiles with the bands in registers ("tiled", where
+    # the span is below 16), or a thread-block cluster per image or row
+    redesigned = {"tail_fw": "cluster", "tail_inv": "cluster",
+                  "modwt_fw_levels": "cluster", "level_fw": "tiled",
+                  "level_inv": "tiled", "level1d_fw": "tiled",
+                  "level1d_inv": "tiled", "axis0_inv": "tiled",
+                  "axis0_inv_halo": "tiled"}
     # the TPU kernels that a route of phase 3g runs on a kernel above: its
     # name, the kernel, the row of measurements, the TPU kernel, and its
     # launches on that route
@@ -2405,6 +2743,7 @@ def main():
         {"name": name, "route": "cuda",
          "source": f"wavelets_tpu_torch/csrc/{src[name]}",
          "replaces": replaces[name], "launches": launches[name],
+         **({"redesigned": redesigned[name]} if name in redesigned else {}),
          **{k: rows[name][k] for k in ("max_abs_err", "ms", "plain_ms",
                                         "bound_ms", "bound_by",
                                         "library_ms", "copy_bound_ms",
@@ -2417,6 +2756,7 @@ def main():
         {"name": name, "route": "cuda",
          "source": f"wavelets_tpu_torch/csrc/{src[kern]}",
          "replaces": pallas + where, "launches": n, "runs_on": kern,
+         **({"redesigned": redesigned[kern]} if kern in redesigned else {}),
          **{k: rows[row][k] for k in ("max_abs_err", "ms", "plain_ms",
                                        "bound_ms", "bound_by",
                                        "library_ms", "copy_bound_ms")}}

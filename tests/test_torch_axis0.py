@@ -170,3 +170,184 @@ def test_batch_items_are_independent():
     for b in range(4):
         ab, db = axis0.axis0_fw(x[b:b + 1], wt)
         assert torch.equal(ab[0], a[b]) and torch.equal(db[0], d[b])
+
+
+# --- kernel J's forms: window, shared bytes, staging path, work items ------
+
+def _syn(wt):
+    """Smallest synthesis offset, span and tap count, from the bands."""
+    offs = np.concatenate([dl for dl, _ in axis0.synthesis_bands(wt)])
+    return int(offs.min()), int(offs.max() - offs.min()), len(offs)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+@pytest.mark.parametrize("name, kind, window", [
+    ("cdf97", "lifting", 8), ("haar", "lifting", 8), ("db4", "filter", 8),
+    ("coif4", "filter", 16), ("db10", "filter", 0)])
+def test_inverse_window_and_shared_bytes(name, kind, window, dtype):
+    """Kernel J's form for a wavelet: the tiled kernel's window (8 or 16
+    offsets, above the synthesis bands' span) or 0, the first form, for a
+    span of 16 or more; and one block's shared bytes, worked out from the
+    bands: the tiled form's two stages, each the a and d rows of 32 output
+    pairs plus the span, 32 groups of 16 bytes of the arithmetic type
+    wide, in the storage type; the first form's two windows of 32 + span
+    rows of 32 lanes in the arithmetic type; the band table beside
+    either.  Two tiled blocks fit an SM's 227 KB."""
+    wt = T.wavelet(T.wt.ALL_CLASSES[name], kind)
+    _, span, taps = _syn(wt)
+    acc = 8 if dtype == torch.float64 else 4
+    size = torch.empty((), dtype=dtype).element_size()
+    table = taps * (acc + 4)
+    assert axis0.inv_window(wt) == window
+    assert (span < window) if window else span >= 16
+    if window:
+        want = 2 * 2 * (32 + span) * 32 * (16 // acc) * size + table
+        assert 2 * want <= 232448
+    else:
+        want = 2 * (32 + span) * 32 * acc + table
+    assert axis0.inv_smem(wt, dtype) == want
+    x = torch.zeros((2, 4, 8), dtype=dtype)
+    assert axis0.inv_plan(x, x, wt).smem == want
+    for dl, _ in axis0.synthesis_bands(wt):      # the tiled kernel's order
+        assert (np.diff(dl) > 0).all()
+
+
+def _aligned(shape, dtype, offset=0):
+    """A (B, R, C) view whose base is ``offset`` elements past a 64-byte
+    aligned buffer (torch's CPU allocations are)."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + offset, dtype=dtype)[offset:].view(shape)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+def test_inverse_staging_path(dtype):
+    """J stages by 16-byte words where C and every view it reads (a, d, a
+    corner) have 16-byte bases and batch and row strides of whole words;
+    by 4 bytes otherwise: a ragged C, a view one element in, the strided
+    views of the 3-D driver's tests with gaps, an unaligned corner."""
+    wt = T.wavelet(T.wt.cdf97, "lifting")
+    e = 16 // torch.empty((), dtype=dtype).element_size()
+    a = _aligned((3, 4, 4 * e), dtype)
+    plan = axis0.inv_plan(a, a, wt)
+    assert plan.staging == 16
+    assert axis0.inv_plan(a[:, :, :-1], a[:, :, :-1], wt).staging == 4
+    assert axis0.inv_plan(_aligned((3, 4, 4 * e), dtype, 1), a,
+                          wt).staging == 4
+    gaps = _aligned((3, 7, 4 * e + 7), dtype)[:, 1:5, 2:2 + 4 * e]
+    assert axis0.inv_plan(gaps, a, wt).staging == 4
+    # the 3-D driver's permuted planes: batch stride C, row stride B C
+    y = _aligned((8, 3, 4 * e), dtype)
+    assert axis0.inv_plan(y[:4].permute(1, 0, 2), y[4:].permute(1, 0, 2),
+                          wt).staging == 16
+    corner = _aligned((2, 4, 2 * e), dtype)
+    assert axis0.inv_plan(a, a, wt, corner).staging == 16
+    assert axis0.inv_plan(a, a, wt, corner[:, :, 1:]).staging == 4
+    # a corner whose row stride is not a whole word, and one whose width
+    # Cc is not (the words across Cc take the 4-byte copy; the rest stays)
+    assert axis0.inv_plan(a, a, wt, _aligned((2, 4, e + 1), dtype)[
+        :, :, :e]).staging == 4
+    assert axis0.inv_plan(a, a, wt, _aligned((2, 4, 2 * e), dtype)[
+        :, :, :2 * e - 1]).staging == 16
+
+
+def emulate_inv(a, d, wt, corner=None, halos=None):
+    """numpy emulation of kernel J's tiled walk (csrc/axis0.cu) in float64,
+    with the geometry of :func:`axis0.inv_plan`: each work item stages the
+    window rows of a and d of its strip and batch items as the kernel
+    lays them out (the periodic wrap, the halo views, the corner by
+    columns), each unit (output pair, batch item, V columns) sums its
+    taps from the staged rows only, and every write is counted.  Returns
+    the result and the count of writes of each output."""
+    plan = axis0.inv_plan(a, d, wt, corner, halos)
+    assert plan.window
+    B, Rh, C = a.shape
+    smin, span, _ = _syn(wt)
+    bands = axis0.synthesis_bands(wt)
+    v = 16 // (8 if a.dtype == torch.float64 else 4)
+    groups = 32
+    assert plan.tr in (8, 16, 32)
+    A, D = a.double().numpy(), d.double().numpy()
+    H = [h.double().numpy() for h in halos] if halos else None
+    K = corner.double().numpy() if corner is not None else None
+    out = np.full((B, 2 * Rh, C), np.nan)
+    writes = np.zeros((B, 2 * Rh, C), np.int64)
+    bpb = 1 << plan.bsh
+    assert plan.cw * bpb <= plan.ps * bpb <= groups * v     # a strip's room
+    for t in range(plan.items):
+        rest, ct = divmod(t, plan.ctiles)
+        c0, k0 = ct * plan.cw, (rest % plan.rtiles) * plan.tr
+        b0 = (rest // plan.rtiles) << plan.bsh
+        tr = min(plan.tr, Rh - k0)
+        rows, nb, cwl = tr + span, min(bpb, B - b0), min(plan.cw, C - c0)
+        stg = np.full((rows, 2, bpb, plan.ps), np.nan)
+        for i in range(rows):
+            q = k0 + smin + i
+            for src, P in ((0, A), (1, D)):
+                for bl in range(nb):
+                    b = b0 + bl
+                    if H is not None and q < 0:
+                        row = H[2 * src][b, H[2 * src].shape[1] + q]
+                    elif H is not None and q >= Rh:
+                        row = H[2 * src + 1][b, q - Rh]
+                    else:
+                        row = P[b, q % Rh].copy()
+                        if src == 0 and K is not None and b < K.shape[0]:
+                            row[:K.shape[2]] = K[b, q % Rh]
+                    stg[i, src, bl, :cwl] = row[c0:c0 + cwl]
+        for r in range(tr):
+            for bl in range(nb):
+                for j0 in range(0, min(cwl, v << plan.gsh), v):
+                    cols = np.arange(j0, min(j0 + v, cwl))
+                    for p in (0, 1):
+                        acc = np.zeros(len(cols))
+                        for src in (0, 1):
+                            for dl, c in zip(*bands[2 * p + src]):
+                                acc = acc + c * stg[r + dl - smin, src, bl,
+                                                    cols]
+                        out[b0 + bl, 2 * (k0 + r) + p, c0 + cols] = acc
+                        writes[b0 + bl, 2 * (k0 + r) + p, c0 + cols] += 1
+    return out, writes
+
+
+_WALKS = [("narrow C", (5, 4, 3)), ("Rh = 1", (3, 1, 40)),
+          ("ragged strip", (2, 37, 150)), ("batch groups", (9, 3, 10))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case, shape", _WALKS)
+def test_inverse_walk_writes_each_output_once(case, shape, dtype):
+    """Kernel J's work items and units, emulated: every output written
+    exactly once, from staged rows only, equal to the plain version; the
+    narrow level (several batch items to a strip), Rh = 1 (every tap
+    wraps onto one row), a strip cut at a ragged C and batch groups of
+    unequal fill."""
+    wt = T.wavelet(T.wt.cdf97, "lifting")
+    rng = np.random.default_rng(47)
+    a = torch.from_numpy(rng.standard_normal(shape)).to(dtype)
+    d = torch.from_numpy(rng.standard_normal(shape)).to(dtype)
+    out, writes = emulate_inv(a, d, wt)
+    assert (writes == 1).all()
+    ref = axis0.axis0_inv_plain(a.double(), d.double(), wt).numpy()
+    assert np.abs(out - ref).max() <= 1e-12 * max(1.0, np.abs(ref).max())
+
+
+@pytest.mark.parametrize("name, kind", [("db4", "filter"),
+                                        ("coif4", "filter")])
+def test_inverse_walk_on_the_3d_drivers_views_with_a_corner(name, kind):
+    """The 3-D inverse's call (ops/dwt3d.py): a and d the two halves of a
+    sub-cube viewed as (B = m, Rh = d/2, C = n), the leading (Bc, Rh, Cc)
+    block of a read from the deeper level's result; emulated over 8- and
+    16-offset windows, against the plain version with the same corner."""
+    wt = T.wavelet(T.wt.ALL_CLASSES[name], kind)
+    rng = np.random.default_rng(48)
+    y = torch.from_numpy(rng.standard_normal((8, 12, 20)))
+    a, d = y[:4].permute(1, 0, 2), y[4:].permute(1, 0, 2)   # (12, 4, 20)
+    deeper = torch.from_numpy(rng.standard_normal((4, 6, 10)))
+    corner = deeper.permute(1, 0, 2)                         # (6, 4, 10)
+    assert axis0.inv_plan(a, d, wt, corner).staging == 16
+    out, writes = emulate_inv(a, d, wt, corner)
+    assert (writes == 1).all()
+    ref = axis0.axis0_inv_plain(a, d, wt, corner=corner).numpy()
+    assert np.abs(out - ref).max() <= 1e-12 * max(1.0, np.abs(ref).max())

@@ -196,3 +196,54 @@ def test_the_gate_covers_the_reach_for_every_wavelet():
                 assert gate > JS._halo_rows(ref)
                 wider.add((name, kind))
     assert wider == _WIDER
+
+
+def _aligned(shape, offset=0):
+    n = int(np.prod(shape))
+    return torch.zeros(n + offset)[offset:].view(shape)
+
+
+def test_inverse_halo_views_pick_the_staging_path():
+    """Kernel J in halo mode stages by 16-byte words only where the four
+    halo views too have 16-byte bases and strides of whole words: a
+    zero-row halo (haar's reach below is 0) counts like any other view;
+    a halo one element in, or cut from a wider array, takes 4 bytes."""
+    wt = T.wavelet(T.wt.cdf97, "lifting")
+    ia, ib = axis0.halo_reach(wt, True)
+    a = _aligned((2, 8, 16))
+    halos = (_aligned((2, ia, 16)), _aligned((2, ib, 16)),
+             _aligned((2, ia, 16)), _aligned((2, 0, 16)))
+    assert axis0.inv_plan(a, a, wt, halos=halos).staging == 16
+    assert axis0.inv_plan(a, a, wt, halos=(
+        _aligned((2, ia, 16), 1),) + halos[1:]).staging == 4
+    assert axis0.inv_plan(a, a, wt, halos=halos[:3] + (
+        _aligned((2, ib + 2, 19))[:, 1:, 1:17],)).staging == 4
+
+
+@pytest.mark.parametrize("name, kind", [("cdf97", "lifting"),
+                                        ("sym5", "filter")])
+def test_inverse_halo_walk(name, kind):
+    """Kernel J's walk in halo mode, emulated (tests/test_torch_axis0.py,
+    emulate_inv): with random halos, taller than the reach and strided,
+    every output written once and equal to the plain version; with the
+    wrapped rows as halos, bit for bit the periodic walk."""
+    from test_torch_axis0 import emulate_inv
+    wt = T.wavelet(T.wt.ALL_CLASSES[name], kind)
+    ia, ib = axis0.halo_reach(wt, True)
+    rng = np.random.default_rng(84)
+    B, Rh, C = 2, 40, 12
+    a = torch.from_numpy(rng.standard_normal((B, Rh, C)))
+    d = torch.from_numpy(rng.standard_normal((B, Rh, C)))
+
+    def strided(h):
+        return torch.from_numpy(rng.standard_normal(
+            (B, h + 3, C + 5)))[:, 1:h + 1, 2:C + 2]
+
+    halos = (strided(ia + 1), strided(ib + 2), strided(ia + 1), strided(ib))
+    out, writes = emulate_inv(a, d, wt, halos=halos)
+    assert (writes == 1).all()
+    ref = axis0.axis0_inv_plain(a, d, wt, halos=halos).numpy()
+    assert np.abs(out - ref).max() <= 1e-12 * max(1.0, np.abs(ref).max())
+    wrapped = (a[:, Rh - ia:], a[:, :ib], d[:, Rh - ia:], d[:, :ib])
+    assert np.array_equal(emulate_inv(a, d, wt, halos=wrapped)[0],
+                          emulate_inv(a, d, wt)[0])

@@ -238,3 +238,151 @@ def test_inverse_refuses_an_output_over_its_input():
     out = torch.empty((3, 8))
     level1d.level1d_inv(y[:, :4], y[:, 4:8], wt, out=out)
 
+
+
+# --- kernel E's forms: window, shared bytes, staging path, work items ------
+
+def _ana(wt):
+    """Smallest analysis offset, span and tap count, from the bands."""
+    ds, _, dd, _ = level1d.level_bands(wt)
+    offs = np.concatenate([ds, dd])
+    return int(offs.min()), int(offs.max() - offs.min()), len(offs)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+@pytest.mark.parametrize("name, kind, window", [
+    ("cdf97", "lifting", 16), ("haar", "lifting", 8), ("db4", "filter", 16),
+    ("coif4", "filter", 0), ("db10", "filter", 0)])
+def test_forward_window_and_shared_bytes(name, kind, window, dtype):
+    """Kernel E's form for a wavelet: the tiled kernel's window (8 or 16
+    offsets, above the analysis bands' span; kernel A's choice for the
+    same bands) or 0, the first form; and one block's shared bytes,
+    worked out from the bands: the tiled form's two stages, each one row
+    of a full tile (512 groups of V pairs, V = 16 bytes of the arithmetic
+    type: 1024 V samples) plus 32 elements of slack and 64 of pad, in the
+    storage type; the first form's window of 2 x 512 + span samples in
+    the arithmetic type; the band table beside either.  And the band
+    order the tiled kernel reads off the table: the scaling band
+    ascending, the detail band ascending or (a filter's) descending."""
+    wt = T.wavelet(T.wt.ALL_CLASSES[name], kind)
+    _, span, taps = _ana(wt)
+    acc = 8 if dtype == torch.float64 else 4
+    size = torch.empty((), dtype=dtype).element_size()
+    table = taps * (acc + 4)
+    assert level1d.fw1d_window(wt) == window
+    assert (span < window) if window else span >= 16
+    if window:
+        want = 2 * (2 * 512 * (16 // acc) + 32 + 64) * size + table
+    else:
+        want = (2 * 512 + span) * acc + table
+    assert level1d.fw1d_smem(wt, dtype) == want <= 232448
+    assert level1d.fw1d_plan(torch.zeros((2, 8), dtype=dtype), wt,
+                             min_pairs=0).smem == want
+    first = (2 * 512 + span) * acc + table
+    assert level1d.fw1d_smem(wt, dtype, tiled=False) == first
+    assert level1d.fw1d_plan(torch.zeros((2, 8), dtype=dtype),
+                             wt) == (0, 0, 0, 0, 0, 0, 0, 0, 0, 0, first)
+    ds, _, dd, _ = level1d.level_bands(wt)
+    assert (np.diff(ds) > 0).all()
+    assert (np.diff(dd) > 0).all() or (np.diff(dd) < 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+def test_forward_staging_path(dtype):
+    """E stages by 16-byte words where x's base, row stride and n are
+    whole words; by 4 bytes otherwise (a row one element in, an odd row
+    stride, the short rows of a deep packet depth: 2 samples are a whole
+    word in float64 only)."""
+    wt = T.wavelet(T.wt.cdf97, "lifting")
+    e = 16 // torch.empty((), dtype=dtype).element_size()
+
+    def plan(x):
+        return level1d.fw1d_plan(x, wt, min_pairs=0)
+    x = torch.zeros((3, 8 * e), dtype=dtype)
+    assert plan(x).staging == 16
+    assert plan(x[:, 1:1 + 4 * e]).staging == 4
+    assert plan(torch.zeros((3, 8 * e + 1), dtype=dtype)[
+        :, :8 * e]).staging == 4
+    assert plan(torch.zeros((5, 2), dtype=dtype)).staging == (
+        16 if e == 2 else 4)
+
+
+@pytest.mark.parametrize("name, kind", [("cdf97", "lifting"),
+                                        ("haar", "lifting"),
+                                        ("db4", "filter"),
+                                        ("db10", "filter")])
+@pytest.mark.parametrize("B, n", [(1, 1 << 19), (1, (1 << 19) - 2),
+                                  (1 << 18, 2), ((1 << 18) - 1, 2),
+                                  (512, 1024), (511, 1024), (3, 4096),
+                                  (1, 1 << 24)])
+def test_forward_form_follows_the_level_size(B, n, name, kind):
+    """E takes its tiled form for a span below 16 and a level of at
+    least FW1D_MIN_PAIRS output pairs in all (B n/2: one long row, or
+    many short ones alike), its first form below that or for a span of 16
+    or more; a plan made with a bound of 0 pairs is tiled for every
+    size."""
+    wt = T.wavelet(T.wt.ALL_CLASSES[name], kind)
+    assert level1d.FW1D_MIN_PAIRS == 1 << 18
+    x = torch.empty((B, n), dtype=torch.float32)
+    window = level1d.fw1d_window(wt)
+    tiled = bool(window) and B * (n // 2) >= 1 << 18
+    assert level1d.fw1d_plan(x, wt).window == (window if tiled else 0)
+    assert level1d.fw1d_plan(x, wt, min_pairs=0).window == window
+
+
+def emulate_fw(x, wt):
+    """numpy emulation of kernel E's tiled walk (csrc/level1d.cu) in
+    float64, with the geometry of :func:`level1d.fw1d_plan`: each work item
+    stages its rows' windows (the wrap applied while staging) as the
+    kernel lays them out, each unit (row, V pairs) sums its taps from its
+    staged row only, and every write is counted.  Returns s, d and the
+    count of writes of each output pair."""
+    plan = level1d.fw1d_plan(x, wt, min_pairs=0)
+    assert plan.window
+    B, n = x.shape
+    nh = n // 2
+    dmin, span, _ = _ana(wt)
+    ds, cs, dd, cd = level1d.level_bands(wt)
+    v = 16 // (8 if x.dtype == torch.float64 else 4)
+    full = 512 * v
+    assert plan.rpb * plan.ps <= 2 * full + 32          # one stage's room
+    assert plan.rpb << plan.gsh <= 512                  # units of an item
+    X = x.double().numpy()
+    s, d = np.full((B, nh), np.nan), np.full((B, nh), np.nan)
+    writes = np.zeros((B, nh), np.int64)
+    pairs = np.arange(plan.tk)
+    for t in range(plan.items):
+        grp, tt = divmod(t, plan.tiles)
+        b0, k0 = grp * plan.rpb, tt * plan.tk
+        rows, cnt = min(plan.rpb, B - b0), min(plan.tk, nh - k0)
+        assert cnt <= v << plan.gsh                      # groups cover it
+        cb = 2 * k0 + dmin - plan.sh
+        stg = X[b0:b0 + rows][:, (cb + np.arange(plan.ps)) % n]
+        k = pairs[:cnt]
+        for out, offs, coefs in ((s, ds, cs), (d, dd, cd)):
+            idx = 2 * k[:, None] + plan.sh + (np.asarray(offs) - dmin)
+            assert idx.max() < plan.ps                  # inside its row
+            out[b0:b0 + rows, k0:k0 + cnt] = (stg[:, idx] * coefs).sum(-1)
+        writes[b0:b0 + rows, k0:k0 + cnt] += 1
+    return s, d, writes
+
+
+@pytest.mark.parametrize("name, kind", [("cdf97", "lifting"),
+                                        ("db4", "filter")])
+@pytest.mark.parametrize("B, n", [(1 << 19, 2), (700, 2), (5, 1000),
+                                  (1, 1 << 20)])
+def test_forward_walk_writes_each_output_once(B, n, name, kind):
+    """Kernel E's work items, emulated: every output pair written exactly
+    once, from its staged row only, equal to the plain version: the deep
+    packet depth of a 2^20 signal (2^19 rows of 2 samples, a span above
+    n: every tap wraps), 700 rows of 2, (5, 1000) (several rows to an
+    item) and one 2^20 row (cut into tiles)."""
+    wt = T.wavelet(T.wt.ALL_CLASSES[name], kind)
+    x = torch.from_numpy(np.random.default_rng(39).standard_normal((B, n)))
+    s, d, writes = emulate_fw(x.float(), wt)
+    assert (writes == 1).all()
+    rs, rd = level1d.level1d_fw_plain(x.float().double(), wt)
+    for got, ref in ((s, rs.numpy()), (d, rd.numpy())):
+        assert np.abs(got - ref).max() <= 1e-12 * max(1.0, np.abs(ref).max())

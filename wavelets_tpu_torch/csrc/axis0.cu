@@ -23,23 +23,53 @@
 // L2).  The arithmetic (cdf97: 16 FMA per output pair) is far below the
 // FP32 peak.
 //
-// Design: threads run along C (loads and stores coalesced along the unit
-// stride).  A block takes A0_LANES (batch, column) lanes: 32 columns of one
-// batch item, or, where C < 32, every column of 32 / C batch items, so
-// narrow deep levels keep the lanes busy; and A0_TR output pairs along R.
-// It stages its 2 * A0_TR + span input rows (wrapped with a true modulo:
-// R can be 2 at the deepest level) in shared memory and computes its
-// outputs from there.  In halo mode (the template flag HALO) a staged row
-// above the view is read from the caller's `above` rows and one below it
-// from `below`, instead of wrapping: above[H_above + r] for r < 0,
-// below[r - R] for r >= R (the inverse likewise from the halos of a and of
-// d).  The wrapper checks that each halo covers the bands' reach, so with
-// halos equal to the wrapped rows the result is bit for bit the periodic
-// one; the branch costs nothing in the blocks whose window lies inside the
-// view.  The inverse may read the scaling plane's leading
-// (Bc, R/2, Cc) corner from a separate view: the 3-D inverse keeps the
-// deeper level's result apart from the stored details, and this read
-// joins them without a copy.  Tiling for TMA is left to later work.
+// Kernel I, and the first form of kernel J: threads run along C (loads
+// and stores coalesced along the unit stride).  A block takes A0_LANES
+// (batch, column) lanes: 32 columns of one batch item, or, where C < 32,
+// every column of 32 / C batch items, so narrow deep levels keep the
+// lanes busy; and A0_TR output pairs along R.  It stages its 2 * A0_TR +
+// span input rows (wrapped with a true modulo: R can be 2 at the deepest
+// level) in shared memory and computes its outputs from there.  In halo
+// mode (the template flag HALO) a staged row above the view is read from
+// the caller's `above` rows and one below it from `below`, instead of
+// wrapping: above[H_above + r] for r < 0, below[r - R] for r >= R (the
+// inverse likewise from the halos of a and of d).  The wrapper checks
+// that each halo covers the bands' reach, so with halos equal to the
+// wrapped rows the result is bit for bit the periodic one.  The inverse
+// may read the scaling plane's leading (Bc, R/2, Cc) corner from a
+// separate view: the 3-D inverse keeps the deeper level's result apart
+// from the stored details, and this read joins them without a copy.
+//
+// Kernel J (axis0_inv_tiled_kernel) ran at 2.4x the copy floor in that
+// form: 131,072 blocks at 16384^2, each reloading the band table and
+// staging once behind one barrier (staging and taps never overlapped),
+// scalar 4-byte loads and stores, two shared band-table reads per tap.
+// Its design is kernel B's and F's (csrc/level2d.cu, csrc/level1d.cu):
+// * Staging.  Persistent blocks walk work items: 32 output pairs of a
+//   strip of 32 V columns (V = 16 bytes of the arithmetic type) of one
+//   batch item, or of several where C is narrower (the deep levels, the
+//   3-D driver's sub-cubes); a small level takes smaller items, so that
+//   it still spreads over the SMs.  Each item's pairs + span rows of a and d
+//   go into shared memory by 16-byte cp.async in two stages, the next
+//   item's copies in flight while this item's taps run.  Each staged
+//   row's source is picked while staging, so the tap loops never branch
+//   on it: the periodic wrap, the halo views in halo mode, and the corner
+//   per 16-byte word (a word across Cc element by element).  Views whose
+//   bases, strides or C are not whole 16-byte words take a 4-byte
+//   staging path of the same kernel (VEC = false).
+// * The four synthesis bands in registers as dense windows over the
+//   synthesis span (W = 8 or 16, chosen by the span; masks select each
+//   band's taps).
+// * Each thread takes V neighbouring columns of one output pair, reads
+//   each staged 16-byte (bfloat16: 8-byte) word of its window once for
+//   both output rows 2k and 2k + 1, and stores each row as one word.
+// * The arithmetic of the first form: one explicit fma per tap, the S
+//   band then the D band, taps in table order, so halo mode with wrapped
+//   halos stays the periodic result bit for bit.
+// A span of 16 or more (db10 and up) takes the first form
+// (axis0_inv_kernel).  Kernel I keeps its first form.
+
+#include <algorithm>
 
 #include "common.cuh"
 
@@ -212,6 +242,208 @@ axis0_inv_kernel(View3<const T> a, View3<const T> d, View3<const T> corner,
   }
 }
 
+// --- kernel J: staged tiles, dense windows in registers ----------------------
+
+constexpr int JT_THREADS = 256;
+constexpr int JT_TR = 32;      // output pairs (rows 2k, 2k + 1) of a full work item
+constexpr int JT_MIN_TR = 8;   // ... and of the least
+constexpr int JT_GROUPS = 32;  // column groups of V columns in a strip
+// A level that full work items cut into fewer than JT_SPREAD takes smaller
+// ones (first fewer batch items, then fewer output pairs, down to
+// JT_MIN_TR), so that its items still spread over the card's resident
+// blocks (two on each of the H100's 132 SMs) about twice.
+constexpr int JT_SPREAD = 512;
+
+// Columns (storage elements) of a strip: JT_GROUPS groups of V columns, V
+// being 16 bytes of the arithmetic type; and the T elements of one stage,
+// the a and d rows of a full item's window.
+template <typename T>
+__host__ __device__ constexpr int a0_strip() {
+  return JT_GROUPS * Vec16<typename Acc<T>::type>::n;
+}
+
+template <typename T>
+__host__ __device__ int a0_stage(int span) {
+  return 2 * (JT_TR + span) * a0_strip<T>();
+}
+
+template <typename T>
+size_t inv_tiled_smem(int span, int nt) {
+  using A = typename Acc<T>::type;
+  return 2 * static_cast<size_t>(a0_stage<T>(span)) * sizeof(T) +
+         static_cast<size_t>(nt) * (sizeof(A) + sizeof(int));
+}
+
+// Geometry of the tiled inverse, filled by the host; ops/axis0.py
+// (inv_plan, inv_smem) mirrors it.  A work item is tr <= JT_TR output
+// pairs (rows 2k and 2k + 1, k0 <= k < k0 + tr) of a strip of cw columns
+// of 1 << bsh batch items: cw = a0_strip() where C is wider, else C, with
+// as many batch items as one strip's room holds (fewer, and a smaller
+// tr, where the level would have fewer than JT_SPREAD items).  Items run column strip
+// first, then row band, then batch group, so the blocks at work at one
+// time share their halo rows in L2.  A staged row of a or of d (one batch
+// item) holds ps storage elements, cw rounded up to a 16-byte word; window
+// row i is pair row k0 + smin + i, and the row of (i, source s, batch item
+// bl) sits at ((2 i + s) << bsh | bl) * ps.  A staged row takes 1 << lsh
+// threads; column group j (V columns) of item bl of output pair r is unit
+// (r << bsh | bl) << gsh | j.
+struct InvA0Geom {
+  int B, Rh, C, Bc, Cc, ha, smin, span;
+  int tr, cw, ctiles, rtiles, items, bsh, gsh, ps, lsh;
+};
+
+// Kernel J's tiled form.  Each thread takes V neighbouring columns of one
+// output pair: it reads each staged row of its window once, 16 bytes of
+// the storage type (8 for bfloat16) of a and then of d, feeds it to the
+// sums of both output rows 2k and 2k + 1, and stores each row as one
+// word.  The windows run over the synthesis span, offsets smin + w for w <
+// W, one per band (S0, S1, D0, D1) with a mask; each output sums its S
+// band, then its D band, taps in ascending offset, the table's order.
+// The staging picks each row's source, so the tap loops never branch on
+// it: the periodic wrap (a true modulo: Rh can be 1), in halo mode the
+// halo views above and below, and a's leading (Bc, Rh, Cc) block from the
+// corner view (per 16-byte word; a word across Cc element by element).
+template <typename T, int W, bool VEC, bool HALO>
+__global__ void __launch_bounds__(JT_THREADS, 2)
+axis0_inv_tiled_kernel(View3<const T> a, View3<const T> d, View3<const T> corner,
+                       View3<const T> ah0, View3<const T> ah1, View3<const T> dh0,
+                       View3<const T> dh1, View3<T> x, bool vout, InvA0Geom g,
+                       const int* __restrict__ offs,
+                       const typename Acc<T>::type* __restrict__ coefs, int n0,
+                       int n1, int n2, int n3) {
+  using A = typename Acc<T>::type;
+  constexpr int E = 16 / sizeof(T);  // storage elements per 16-byte word
+  constexpr int V = Vec16<A>::n;     // columns per thread
+  using TW = typename Word<V * sizeof(T)>::type;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* stg = reinterpret_cast<T*>(smem_raw);  // two stages
+  const int SB = a0_stage<T>(g.span);
+  const int nt = n0 + n1 + n2 + n3, e0 = n0 + n1, e1 = e0 + n2;
+  A* cf = reinterpret_cast<A*>(stg + 2 * SB);
+  int* of = reinterpret_cast<int*>(cf + nt);
+  const int tid = threadIdx.x;
+  const int bpb = 1 << g.bsh;
+  const int rs = (2 << g.bsh) * g.ps;  // one window row: a and d of bpb items
+
+  // work item t: first batch item b0, first output pair k0, first column c0
+  const auto item = [&](int t, int& b0, int& k0, int& c0) {
+    const int rest = t / g.ctiles;
+    c0 = (t - rest * g.ctiles) * g.cw;
+    k0 = (rest % g.rtiles) * g.tr;
+    b0 = (rest / g.rtiles) << g.bsh;
+  };
+  // stage work item `t` into stage buffer `buf`: the tr + span window rows
+  // of a and d that its pairs read, each row's source picked here
+  const auto stage = [&](int t, int buf) {
+    int b0, k0, c0;
+    item(t, b0, k0, c0);
+    const int rows = min(g.tr, g.Rh - k0) + g.span;
+    const int nb = min(bpb, g.B - b0), cwl = min(g.cw, g.C - c0);
+    const int nw = VEC ? cwl / E : cwl;
+    const int q0 = k0 + g.smin;
+    const bool rin = q0 >= 0 && q0 + rows <= g.Rh;  // no row wraps or leaves
+    T* dst = stg + buf * SB;
+    const int sl = (1 << g.lsh) - 1;
+    for (int s = tid >> g.lsh; s < (2 * rows) << g.bsh; s += JT_THREADS >> g.lsh) {
+      const int bl = s & (bpb - 1), src = (s >> g.bsh) & 1, q = q0 + (s >> (g.bsh + 1));
+      if (bl >= nb) continue;
+      const int b = b0 + bl;
+      const int row = HALO || rin ? q : wrap(q, g.Rh);
+      const T* p;
+      if (HALO && q < 0)
+        p = src ? dh0.at(b, g.ha + q, c0) : ah0.at(b, g.ha + q, c0);
+      else if (HALO && q >= g.Rh)
+        p = src ? dh1.at(b, q - g.Rh, c0) : ah1.at(b, q - g.Rh, c0);
+      else
+        p = src ? d.at(b, row, c0) : a.at(b, row, c0);
+      // columns below ccut come from the corner
+      const int ccut = !HALO && src == 0 && b < g.Bc ? min(g.Cc - c0, cwl) : 0;
+      const T* pc = ccut > 0 ? corner.at(b, row, c0) : p;
+      T* dq = dst + s * g.ps;
+      for (int k = tid & sl; k < nw; k += sl + 1) {
+        if (!VEC) {
+          dq[k] = (k < ccut ? pc : p)[k];
+        } else if (k * E + E <= ccut || k * E >= ccut) {
+          cp_async16(dq + k * E, (k * E < ccut ? pc : p) + k * E);
+        } else {
+          for (int e = 0; e < E; ++e) dq[k * E + e] = (k * E + e < ccut ? pc : p)[k * E + e];
+        }
+      }
+    }
+  };
+  if (static_cast<int>(blockIdx.x) < g.items) stage(blockIdx.x, 0);
+  cp_async_commit();
+
+  load_bands(cf, of, coefs, offs, nt, tid, JT_THREADS);
+  __syncthreads();
+  // the dense windows: cs0[w] / ms0 bit w the parity-0 S band's tap at
+  // offset smin + w (cs1: parity 1; cd0, cd1: the D bands)
+  A cs0[W], cs1[W], cd0[W], cd1[W];
+  const unsigned ms0 = band_window(cs0, cf, of, 0, n0, g.smin);
+  const unsigned md0 = band_window(cd0, cf, of, n0, e0, g.smin);
+  const unsigned ms1 = band_window(cs1, cf, of, e0, e1, g.smin);
+  const unsigned md1 = band_window(cd1, cf, of, e1, nt, g.smin);
+
+  for (int t = blockIdx.x, it = 0; t < g.items; t += gridDim.x, ++it) {
+    // the next work item's loads go out before this one's taps
+    if (t + static_cast<int>(gridDim.x) < g.items) stage(t + gridDim.x, (it + 1) & 1);
+    cp_async_commit();
+    cp_async_wait1();
+    __syncthreads();  // this item staged
+    int b0, k0, c0;
+    item(t, b0, k0, c0);
+    const int tr = min(g.tr, g.Rh - k0);
+    const int nb = min(bpb, g.B - b0), cwl = min(g.cw, g.C - c0);
+    const T* sq = stg + (it & 1) * SB;
+    for (int u = tid; u < g.tr << (g.bsh + g.gsh); u += JT_THREADS) {
+      const int j0 = (u & ((1 << g.gsh) - 1)) * V;
+      const int bl = (u >> g.gsh) & (bpb - 1), r = u >> (g.gsh + g.bsh);
+      if (r >= tr || bl >= nb || j0 >= cwl) continue;
+      const T* pa = sq + r * rs + bl * g.ps + j0;  // pa[w rs]: a at pair k + smin + w
+      const T* pd = pa + bpb * g.ps;                // the same row of d
+      A o0[V], o1[V];
+#pragma unroll
+      for (int e = 0; e < V; ++e) o0[e] = o1[e] = A(0);
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        if (w > g.span) break;
+        A v[V];
+        load_words<V * sizeof(T)>(v, pa + w * rs, V);
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          if ((ms0 >> w) & 1) o0[e] = fma(cs0[w], v[e], o0[e]);
+          if ((ms1 >> w) & 1) o1[e] = fma(cs1[w], v[e], o1[e]);
+        }
+      }
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        if (w > g.span) break;
+        A v[V];
+        load_words<V * sizeof(T)>(v, pd + w * rs, V);
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          if ((md0 >> w) & 1) o0[e] = fma(cd0[w], v[e], o0[e]);
+          if ((md1 >> w) & 1) o1[e] = fma(cd1[w], v[e], o1[e]);
+        }
+      }
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const A* o = p ? o1 : o0;
+        T* op = x.at(b0 + bl, 2 * (k0 + r) + p, c0 + j0);
+        if (vout && j0 + V <= cwl) {
+          __align__(16) T wv[V];
+#pragma unroll
+          for (int e = 0; e < V; ++e) st(wv + e, o[e]);
+          *reinterpret_cast<TW*>(op) = *reinterpret_cast<const TW*>(wv);
+        } else {
+          for (int e = 0; e < V && j0 + e < cwl; ++e) st(op + e, o[e]);
+        }
+      }
+    }
+    __syncthreads();  // every thread is done with this buffer before it is restaged
+  }
+}
+
 constexpr int64_t A0_MAX_BLOCKS = 2147483647;
 
 // The k-th of the caller's halo views (pointers, batch and row strides), or
@@ -244,6 +476,93 @@ int axis0_fw(int B, int R, int C, const void* x, int64_t xsb, int64_t xsr,
                 span);
 }
 
+inline bool words16(const void* p, int64_t sb, int64_t sr, int e) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && sb % e == 0 && sr % e == 0;
+}
+
+template <typename T, int W, bool VEC, bool HALO>
+int axis0_inv_launch(const InvA0Geom& g, const void* a, int64_t asb, int64_t asr,
+                     const void* d, int64_t dsb, int64_t dsr, const void* corner,
+                     int64_t csb, int64_t csr, const void* const* hp, const int64_t* hsb,
+                     const int64_t* hsr, void* x, int64_t xsb, int64_t xsr, bool vout,
+                     const int* offs, const void* coefs, const int* nb,
+                     cudaStream_t stream) {
+  using A = typename Acc<T>::type;
+  return launch_persistent(
+      axis0_inv_tiled_kernel<T, W, VEC, HALO>, g.items, JT_THREADS,
+      inv_tiled_smem<T>(g.span, nb[0] + nb[1] + nb[2] + nb[3]), stream,
+      View3<const T>{static_cast<const T*>(a), asb, asr},
+      View3<const T>{static_cast<const T*>(d), dsb, dsr},
+      View3<const T>{static_cast<const T*>(corner), csb, csr},
+      halo_view<T>(hp, hsb, hsr, 0), halo_view<T>(hp, hsb, hsr, 1),
+      halo_view<T>(hp, hsb, hsr, 2), halo_view<T>(hp, hsb, hsr, 3),
+      View3<T>{static_cast<T*>(x), xsb, xsr}, vout, g, offs,
+      static_cast<const A*>(coefs), nb[0], nb[1], nb[2], nb[3]);
+}
+
+// Kernel J's tiled form (spans below 16: a window of 8 or 16 offsets), on
+// its 16-byte staging path where C and every view it reads (a, d, the
+// corner, the halos) have 16-byte bases and batch and row strides of whole
+// 16-byte words, on its 4-byte path otherwise.
+template <typename T, bool HALO>
+int axis0_inv_tiled(int B, int Rh, int C, const void* a, int64_t asb, int64_t asr,
+                    const void* d, int64_t dsb, int64_t dsr, const void* corner,
+                    int64_t csb, int64_t csr, int Bc, int Cc, const void* const* hp,
+                    const int64_t* hsb, const int64_t* hsr, int ha, void* x,
+                    int64_t xsb, int64_t xsr, const int* offs, const void* coefs,
+                    const int* nb, int smin, int span, cudaStream_t stream) {
+  using A = typename Acc<T>::type;
+  constexpr int E = 16 / sizeof(T), V = Vec16<A>::n, SW = a0_strip<T>();
+  bool vec = C % E == 0 && words16(a, asb, asr, E) && words16(d, dsb, dsr, E);
+  if (Bc > 0 && Cc > 0) vec = vec && words16(corner, csb, csr, E);
+  if (HALO)
+    for (int k = 0; k < 4; ++k) vec = vec && words16(hp[k], hsb[k], hsr[k], E);
+  const bool vout = reinterpret_cast<uintptr_t>(x) % (V * sizeof(T)) == 0 &&
+                    xsb % V == 0 && xsr % V == 0;
+  InvA0Geom g;
+  g.B = B;
+  g.Rh = Rh;
+  g.C = C;
+  g.Bc = Bc;
+  g.Cc = Cc;
+  g.ha = ha;
+  g.smin = smin;
+  g.span = span;
+  g.cw = C < SW ? C : SW;
+  g.ctiles = (C + g.cw - 1) / g.cw;
+  g.ps = (g.cw + E - 1) / E * E;
+  g.gsh = ceil_log2((g.cw + V - 1) / V);
+  // as many batch items as the strip's groups and room allow, no more than B
+  int bsh = 0;
+  while ((2 << bsh) <= (JT_GROUPS >> g.gsh) && (2 << bsh) * g.ps <= SW && (1 << bsh) < B)
+    ++bsh;
+  const auto count = [&](int tr, int bsh) {
+    return static_cast<int64_t>(g.ctiles) * ((Rh + tr - 1) / tr) * ((B + (1 << bsh) - 1) >> bsh);
+  };
+  int tr = JT_TR;
+  while (count(tr, bsh) < JT_SPREAD && (bsh > 0 || tr > JT_MIN_TR)) {
+    if (bsh > 0)
+      --bsh;
+    else
+      tr /= 2;
+  }
+  g.tr = tr;
+  g.bsh = bsh;
+  g.rtiles = (Rh + tr - 1) / tr;
+  g.lsh = std::min(ceil_log2(vec ? g.ps / E : g.ps), 8);
+  const int64_t items = count(tr, bsh);
+  if (items > 2147483647) return static_cast<int>(cudaErrorInvalidConfiguration);
+  g.items = static_cast<int>(items);
+  const bool narrow = span < 8;
+  if (vec)
+    return narrow ? axis0_inv_launch<T, 8, true, HALO>(g, a, asb, asr, d, dsb, dsr, corner, csb, csr, hp, hsb, hsr, x, xsb, xsr, vout, offs, coefs, nb, stream)
+                  : axis0_inv_launch<T, 16, true, HALO>(g, a, asb, asr, d, dsb, dsr, corner, csb, csr, hp, hsb, hsr, x, xsb, xsr, vout, offs, coefs, nb, stream);
+  return narrow ? axis0_inv_launch<T, 8, false, HALO>(g, a, asb, asr, d, dsb, dsr, corner, csb, csr, hp, hsb, hsr, x, xsb, xsr, vout, offs, coefs, nb, stream)
+                : axis0_inv_launch<T, 16, false, HALO>(g, a, asb, asr, d, dsb, dsr, corner, csb, csr, hp, hsb, hsr, x, xsb, xsr, vout, offs, coefs, nb, stream);
+}
+
+// Kernel J: the tiled form for spans below 16, the first form (one block
+// per A0Grid tile, wrapped taps read from shared windows) above.
 template <typename T, bool HALO>
 int axis0_inv(int B, int Rh, int C, const void* a, int64_t asb, int64_t asr,
               const void* d, int64_t dsb, int64_t dsr, const void* corner,
@@ -252,6 +571,10 @@ int axis0_inv(int B, int Rh, int C, const void* a, int64_t asb, int64_t asr,
               int64_t xsb, int64_t xsr, const int* offs, const void* coefs,
               const int* nb, int smin, int span, cudaStream_t stream) {
   using A = typename Acc<T>::type;
+  if (span < 16)
+    return axis0_inv_tiled<T, HALO>(B, Rh, C, a, asb, asr, d, dsb, dsr, corner, csb, csr,
+                                    Bc, Cc, hp, hsb, hsr, ha, x, xsb, xsr, offs, coefs, nb,
+                                    smin, span, stream);
   const A0Grid g = a0_grid(B, Rh, C);
   if (g.blocks > A0_MAX_BLOCKS) return static_cast<int>(cudaErrorInvalidConfiguration);
   const int nt = nb[0] + nb[1] + nb[2] + nb[3];

@@ -45,6 +45,28 @@ __device__ __forceinline__ void load_bands(A* cf, int* of, const A* coefs,
   }
 }
 
+// The dense window of one band of a table in shared memory: cw[w] = the
+// tap at offset base + w of taps k0 <= k < k1 (0 where there is none),
+// and bit w of the returned mask set where there is one; every offset
+// lies in [base, base + W).  One pass over the taps, each placed by
+// compile-time indices, so the window stays in registers.
+template <int W, typename A>
+__device__ __forceinline__ unsigned band_window(A (&cw)[W], const A* cf, const int* of,
+                                                int k0, int k1, int base) {
+  unsigned m = 0;
+#pragma unroll
+  for (int w = 0; w < W; ++w) cw[w] = A(0);
+  for (int k = k0; k < k1; ++k) {
+    const int o = of[k] - base;
+    const A c = cf[k];
+    m |= 1u << o;
+#pragma unroll
+    for (int w = 0; w < W; ++w)
+      if (w == o) cw[w] = c;
+  }
+  return m;
+}
+
 // cp.async of one 16-byte word from device memory into shared memory,
 // its commit, and the wait for all but the newest group (the PTX under
 // __CUDA_ARCH__; a plain copy elsewhere, where the commit and wait have
@@ -113,6 +135,13 @@ __device__ __forceinline__ void load_window(A (&xv)[N], const T* src, int cnt, i
 // offsets `a` and `b` of a staged window.
 __host__ __device__ inline int window_gran(long long a, long long b, int elem) {
   return (a % 16 == 0 && b % 16 == 0) ? 16 : (a % 8 == 0 && b % 8 == 0) ? 8 : elem;
+}
+
+// The least l with 2^l >= v (v >= 1).
+inline int ceil_log2(int v) {
+  int l = 0;
+  while ((1 << l) < v) ++l;
+  return l;
 }
 
 // Shared memory one block may take on the H100 (227 KiB).

@@ -19,8 +19,8 @@
 // memory sees each input byte once.  The arithmetic (cdf97: 16 FMA per
 // output pair) is far below the FP32 peak.
 //
-// Kernel E, and the first form of kernel F: a block takes a tile of up to
-// E_TK (F_TK) output pairs of one row (a long row is split into tiles) or
+// The first forms of kernels E and F: a block takes a tile of up to E_TK
+// (F_TK) output pairs of one row (a long row is split into tiles) or
 // several whole rows (short rows, as at deep packet depths where rows have
 // 2 samples), loads the tile's input window (wrapped modulo n, coalesced)
 // into shared memory in the arithmetic type, and computes its outputs from
@@ -29,29 +29,38 @@
 // planes with their own row strides: the packed array's detail segment,
 // or the two halves of each output row for the packet transform.
 //
-// Kernel F (level1d_inv_tiled_kernel) ran at 4.4x its bound in that form:
-// an integer division and two scalar global loads per staged element, a
-// shared band-table read per tap, two outputs per thread and 524,288
-// blocks at 16384 rows of 16384.  Its design is kernel B's
-// (csrc/level2d.cu):
+// Kernels F and E ran at 4.4x and 2.6x their bound in that form: an
+// integer division, a wrap select and a scalar global load per staged
+// element, a shared band-table read per tap, one or two outputs per
+// thread as scalar stores, and 524,288 (F) or 262,144 (E) blocks at 16384
+// rows of 16384.  Their design is kernel B's (csrc/level2d.cu):
 // * Staging.  Persistent blocks walk work items: a tile of up to 512 V
-//   pairs of one row, or as many whole short rows as fit one (an iwpt
+//   pairs of one row, or as many whole short rows as fit one (a packet
 //   depth of 2^19 rows of one pair runs 1024 items, not 2^19 blocks).
-//   Each item's s and d windows (pairs + span, wrapped while staged) go
-//   into shared memory by 16-byte cp.async in two stages, the next item's
-//   copies in flight while this item's taps run; a staged row takes a
-//   power of two of threads, so no division per element.  Planes whose
-//   bases, row strides or length are not whole 16-byte words take a
-//   4-byte staging path of the same kernel (VEC = false).
-// * The four synthesis bands in registers as dense windows over the
-//   synthesis span (W = 8 or 16 wide, chosen by the span; masks select
-//   each band's taps).
-// * Each thread makes V neighbouring pairs, 2V outputs, one 16-byte word
-//   of x, stored as one word.
-// * The arithmetic of the first form: one explicit fma per tap, the S
-//   band then the D band, taps in table order.
-// A span of 16 or more (db10 and up) takes the first form
-// (level1d_inv_wrap_kernel).
+//   E cuts a small level into smaller items, so that they still spread
+//   over the SMs.  Each item's windows (E: twice its pairs plus the span
+//   in samples of x; F: its pairs plus the span of s and of d; wrapped
+//   while staged) go into shared memory by 16-byte cp.async in two
+//   stages, the next item's copies in flight while this item's taps run;
+//   a staged row takes a power of two of threads, so no division per
+//   element.  Inputs whose bases, row strides or length are
+//   not whole 16-byte words take a 4-byte staging path of the same kernel
+//   (VEC = false).
+// * The bands in registers as dense windows (W = 8 or 16 wide, chosen by
+//   the span; masks select each band's taps): E's over the union of the
+//   two analysis bands' offsets, F's over the synthesis span.
+// * Each thread makes V neighbouring pairs: E reads the 2V - 1 + span
+//   staged samples they need once and stores V scaling and V detail
+//   outputs as one word each (16 bytes, 8 for bfloat16) where the plane
+//   allows; F makes 2V outputs, one 16-byte word of x.
+// * The arithmetic of the first forms: one explicit fma per tap, each
+//   band in table order (F: the S band then the D band; E: a filter's
+//   detail band, held in descending offset order, in a loop of its own).
+// A span of 16 or more (E: coif4, sym5, db10 and up; F: db10 and up)
+// takes the first form (level1d_fw_kernel, level1d_inv_wrap_kernel); so
+// does a forward level of fewer than min_pairs output pairs in all, which
+// the host passes (ops/level1d.py FW1D_MIN_PAIRS, measured on the card):
+// there the tiled form's fixed costs outweigh its faster staging.
 
 #include <algorithm>
 
@@ -190,9 +199,9 @@ level1d_inv_wrap_kernel(const T* __restrict__ s, int64_t ss, const T* __restrict
 constexpr int64_t MAX_BLOCKS = 2147483647;
 
 template <typename T>
-int level1d_fw(int B, int n, const void* x, int64_t xs, void* s, int64_t ss,
-               void* d, int64_t dst, const int* offs, const void* coefs, int ns,
-               int nd, int dmin, int span, cudaStream_t stream) {
+int level1d_fw_wrap(int B, int n, const void* x, int64_t xs, void* s, int64_t ss,
+                    void* d, int64_t dst, const int* offs, const void* coefs, int ns,
+                    int nd, int dmin, int span, cudaStream_t stream) {
   using A = typename Acc<T>::type;
   const Tiling tl = tiling<A>(B, n / 2, E_TK, 2, span, ns + nd);
   if (tl.blocks > MAX_BLOCKS) return static_cast<int>(cudaErrorInvalidConfiguration);
@@ -203,6 +212,224 @@ int level1d_fw(int B, int n, const void* x, int64_t xs, void* s, int64_t ss,
                 static_cast<T*>(s), ss, static_cast<T*>(d), dst, B, n, tl.tk,
                 tl.tiles, tl.rpb, offs, static_cast<const A*>(coefs), ns, nd,
                 dmin, span);
+}
+
+// --- kernel E: staged tiles, dense windows in registers ----------------------
+
+constexpr int FE_THREADS = 256;
+constexpr int FE_GROUPS = 512;  // pair groups of V pairs per tile
+constexpr int FE_SLACK = 32;    // staged elements of a row beyond a full tile's samples
+constexpr int FE_PAD = 64;      // staged elements past a stage's last row
+// A level that full tiles cut into fewer than FE_SPREAD work items takes
+// smaller ones (down to FE_MIN_GROUPS groups of V pairs, or fewer short
+// rows to an item), so that its items still spread over the card's
+// resident blocks (two on each of the H100's 132 SMs) about twice.
+constexpr int FE_SPREAD = 512;
+constexpr int FE_MIN_GROUPS = 16;
+
+// Geometry of the tiled forward, filled by the host; ops/level1d.py
+// (fw1d_plan, fw1d_smem) mirrors it.  A work item is a tile of tk output
+// pairs of rpb rows: a long row (n/2 above tk pairs: a full tile's
+// FE_GROUPS V, or fewer in a small level) is cut into `tiles` tiles of one
+// row each; shorter rows are one tile each, rpb of them together.  A staged row holds ps storage elements,
+// element e being x[(2 k0 + dmin - sh + e) mod n], with sh = dmin mod E on
+// the 16-byte path and 0 on the 4-byte path; ps is a whole number of
+// 16-byte words.  Pair group j (V pairs) of a tile's row r is unit r << gsh
+// | j; a staged row takes 1 << lsh threads.  A stage has room for one row of
+// a full tile, so its size does not depend on the shape.
+struct Fw1dGeom {
+  int B, n, dmin, span, tk, tiles, rpb, gsh, ps, sh, lsh;
+};
+
+template <typename T>
+__host__ __device__ constexpr int fw1d_stage() {  // T elements of one stage
+  return 2 * FE_GROUPS * Vec16<typename Acc<T>::type>::n + FE_SLACK + FE_PAD;
+}
+
+template <typename T>
+size_t fw1d_tiled_smem(int nt) {
+  using A = typename Acc<T>::type;
+  return 2 * static_cast<size_t>(fw1d_stage<T>()) * sizeof(T) +
+         static_cast<size_t>(nt) * (sizeof(A) + sizeof(int));
+}
+
+// Kernel E's tiled form: each thread takes V neighbouring output pairs of
+// one row (V = 16 bytes of the arithmetic type): it reads the 2V - 1 +
+// span staged samples they need once, in the widest words their alignment
+// allows, feeds each to every tap of both sums that reaches it, and
+// stores the V scaling and the V detail outputs as one word each (16
+// bytes, 8 for bfloat16) where the plane's base and row stride allow.  The
+// windows run over the union of the two bands' offsets, [dmin, dmin + W);
+// each sum takes its band's taps in table order, which bands.py makes
+// ascending, except a filter's detail band (offsets 1, 0, -1, ...), which
+// runs in a descending loop of its own (as kernel A's).
+template <typename T, int W, bool VEC>
+__global__ void __launch_bounds__(FE_THREADS, 2)
+level1d_fw_tiled_kernel(const T* __restrict__ x, int64_t xs, T* s, int64_t ss, T* d,
+                        int64_t dst, bool vs, bool vd, Fw1dGeom g,
+                        const int* __restrict__ offs,
+                        const typename Acc<T>::type* __restrict__ coefs, int ns, int nd) {
+  using A = typename Acc<T>::type;
+  constexpr int E = 16 / sizeof(T);  // storage elements per 16-byte word
+  constexpr int V = Vec16<A>::n;     // output pairs per thread
+  constexpr int NX = 2 * V + W - 1;  // staged samples a group may read
+  constexpr int SB = fw1d_stage<T>();
+  using TW = typename Word<V * sizeof(T)>::type;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* stg = reinterpret_cast<T*>(smem_raw);  // two stages: [rpb][ps]
+  const int nt = ns + nd;
+  A* cf = reinterpret_cast<A*>(stg + 2 * SB);
+  int* of = reinterpret_cast<int*>(cf + nt);
+  const int tid = threadIdx.x;
+  const int nh = g.n / 2;
+  const int total = (g.B + g.rpb - 1) / g.rpb * g.tiles;
+
+  // stage work item `t` into stage buffer `buf`: 1 << lsh threads per
+  // staged row, one per 16-byte word (per element on the 4-byte path); the
+  // modulo only where the tile's window wraps
+  const auto stage = [&](int t, int buf) {
+    const int grp = t / g.tiles, b0 = grp * g.rpb;
+    const int rows = min(g.rpb, g.B - b0), k0 = (t - grp * g.tiles) * g.tk;
+    T* dstg = stg + buf * SB;
+    const int cb = 2 * k0 + g.dmin - g.sh;
+    const bool cin = cb >= 0 && cb + g.ps <= g.n;
+    const int nw = VEC ? g.ps / E : g.ps, sl = (1 << g.lsh) - 1;
+    for (int q = tid >> g.lsh; q < rows; q += FE_THREADS >> g.lsh) {
+      const T* row = x + static_cast<int64_t>(b0 + q) * xs;
+      T* dq = dstg + q * g.ps;
+      for (int k = tid & sl; k < nw; k += sl + 1) {
+        if (VEC)
+          cp_async16(dq + k * E, row + (cin ? cb + k * E : wrap(cb + k * E, g.n)));
+        else
+          dq[k] = row[cin ? cb + k : wrap(cb + k, g.n)];
+      }
+    }
+  };
+  if (static_cast<int>(blockIdx.x) < total) stage(blockIdx.x, 0);
+  cp_async_commit();
+
+  load_bands(cf, of, coefs, offs, nt, tid, FE_THREADS);
+  __syncthreads();
+  // the dense windows over offsets dmin + w, w < W: cs / ms bit w the
+  // scaling band's tap there, cd / md the detail band's; the detail
+  // band's mask goes to the ascending (mda) or descending (mdd) loop
+  A cs[W], cd[W];
+  const unsigned ms = band_window(cs, cf, of, 0, ns, g.dmin);
+  const unsigned md = band_window(cd, cf, of, ns, nt, g.dmin);
+  const bool drev = nd > 1 && of[ns + 1] < of[ns];
+  const unsigned mda = drev ? 0u : md, mdd = drev ? md : 0u;
+  const int gran = window_gran(static_cast<long long>(g.sh) * sizeof(T),
+                               2 * V * static_cast<long long>(sizeof(T)), sizeof(T));
+
+  for (int t = blockIdx.x, it = 0; t < total; t += gridDim.x, ++it) {
+    // the next work item's loads go out before this one's taps
+    if (t + static_cast<int>(gridDim.x) < total) stage(t + gridDim.x, (it + 1) & 1);
+    cp_async_commit();
+    cp_async_wait1();
+    __syncthreads();  // this item staged
+    const int grp = t / g.tiles, b0 = grp * g.rpb;
+    const int rows = min(g.rpb, g.B - b0), k0 = (t - grp * g.tiles) * g.tk;
+    const int cnt = min(g.tk, nh - k0);
+    const T* sq = stg + (it & 1) * SB;
+    for (int u = tid; u < g.rpb << g.gsh; u += FE_THREADS) {
+      const int r = u >> g.gsh, k = (u & ((1 << g.gsh) - 1)) * V;
+      if (r >= rows || k >= cnt) continue;
+      A xv[NX];
+      load_window(xv, sq + r * g.ps + 2 * k + g.sh, 2 * V - 1 + g.span, gran);
+      A sv[V], dv[V];
+#pragma unroll
+      for (int e = 0; e < V; ++e) sv[e] = dv[e] = A(0);
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        if (w > g.span) break;
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          if ((ms >> w) & 1) sv[e] = fma(cs[w], xv[2 * e + w], sv[e]);
+          if ((mda >> w) & 1) dv[e] = fma(cd[w], xv[2 * e + w], dv[e]);
+        }
+      }
+      if (mdd) {
+#pragma unroll
+        for (int w = W - 1; w >= 0; --w) {
+#pragma unroll
+          for (int e = 0; e < V; ++e)
+            if ((mdd >> w) & 1) dv[e] = fma(cd[w], xv[2 * e + w], dv[e]);
+        }
+      }
+      const int64_t b = b0 + r;
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const A* o = p ? dv : sv;
+        T* op = p ? d + b * dst + k0 + k : s + b * ss + k0 + k;
+        if ((p ? vd : vs) && k + V <= cnt) {
+          __align__(16) T wv[V];
+#pragma unroll
+          for (int e = 0; e < V; ++e) st(wv + e, o[e]);
+          *reinterpret_cast<TW*>(op) = *reinterpret_cast<const TW*>(wv);
+        } else {
+          for (int e = 0; e < V && k + e < cnt; ++e) st(op + e, o[e]);
+        }
+      }
+    }
+    __syncthreads();  // every thread is done with this buffer before it is restaged
+  }
+}
+
+template <typename T, int W, bool VEC>
+int level1d_fw_tiled(const Fw1dGeom& g, const void* x, int64_t xs, void* s, int64_t ss,
+                     void* d, int64_t dst, bool vs, bool vd, const int* offs,
+                     const void* coefs, int ns, int nd, cudaStream_t stream) {
+  using A = typename Acc<T>::type;
+  const int64_t work = static_cast<int64_t>((g.B + g.rpb - 1) / g.rpb) * g.tiles;
+  if (work > 2147483647) return static_cast<int>(cudaErrorInvalidConfiguration);
+  return launch_persistent(level1d_fw_tiled_kernel<T, W, VEC>, static_cast<int>(work),
+                           FE_THREADS, fw1d_tiled_smem<T>(ns + nd), stream,
+                           static_cast<const T*>(x), xs, static_cast<T*>(s), ss,
+                           static_cast<T*>(d), dst, vs, vd, g, offs,
+                           static_cast<const A*>(coefs), ns, nd);
+}
+
+// Kernel E: the tiled form for spans below 16 (a window of 8 or 16
+// offsets) and levels of at least min_pairs output pairs, 16-byte staging
+// where x's base, row stride and n are whole 16-byte words; the first
+// form otherwise.
+template <typename T>
+int level1d_fw(int B, int n, const void* x, int64_t xs, void* s, int64_t ss,
+               void* d, int64_t dst, const int* offs, const void* coefs, int ns,
+               int nd, int dmin, int span, int64_t min_pairs, cudaStream_t stream) {
+  using A = typename Acc<T>::type;
+  if (span >= 16 || static_cast<int64_t>(B) * (n / 2) < min_pairs)
+    return level1d_fw_wrap<T>(B, n, x, xs, s, ss, d, dst, offs, coefs, ns, nd, dmin,
+                              span, stream);
+  constexpr int E = 16 / sizeof(T), V = Vec16<A>::n, full = FE_GROUPS * V;
+  const bool vec = n % E == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 && xs % E == 0;
+  const bool vs = reinterpret_cast<uintptr_t>(s) % (V * sizeof(T)) == 0 && ss % V == 0;
+  const bool vd = reinterpret_cast<uintptr_t>(d) % (V * sizeof(T)) == 0 && dst % V == 0;
+  const int nh = n / 2;
+  Fw1dGeom g;
+  g.B = B;
+  g.n = n;
+  g.dmin = dmin;
+  g.span = span;
+  g.sh = vec ? ((dmin % E) + E) % E : 0;
+  // pairs per work item: a full tile, or a FE_SPREAD-th of the level
+  const int64_t want = static_cast<int64_t>(B) * nh / FE_SPREAD;
+  const int per = static_cast<int>(
+      std::min<int64_t>(full, std::max<int64_t>(FE_MIN_GROUPS * V, (want + V - 1) / V * V)));
+  g.tk = nh > per ? per : nh;
+  g.tiles = (nh + g.tk - 1) / g.tk;
+  g.gsh = ceil_log2((g.tk + V - 1) / V);
+  g.ps = (g.sh + 2 * g.tk - 1 + span + E - 1) / E * E;
+  // as many short rows as the groups, one stage's room and the spread allow
+  const int fit = (2 * full + FE_SLACK) / g.ps;
+  g.rpb = std::max(1, std::min(std::min(FE_GROUPS >> g.gsh, fit), per / g.tk));
+  g.lsh = std::min(ceil_log2(vec ? g.ps / E : g.ps), 8);
+  const bool narrow = span < 8;
+  if (vec)
+    return narrow ? level1d_fw_tiled<T, 8, true>(g, x, xs, s, ss, d, dst, vs, vd, offs, coefs, ns, nd, stream)
+                  : level1d_fw_tiled<T, 16, true>(g, x, xs, s, ss, d, dst, vs, vd, offs, coefs, ns, nd, stream);
+  return narrow ? level1d_fw_tiled<T, 8, false>(g, x, xs, s, ss, d, dst, vs, vd, offs, coefs, ns, nd, stream)
+                : level1d_fw_tiled<T, 16, false>(g, x, xs, s, ss, d, dst, vs, vd, offs, coefs, ns, nd, stream);
 }
 
 // --- kernel F: staged tiles, dense windows in registers ----------------------
@@ -386,12 +613,6 @@ int level1d_inv_wrap(int B, int nh, const void* s, int64_t ss, const void* d,
                 nb[0], nb[1], nb[2], nb[3], smin, span);
 }
 
-inline int ceil_log2(int v) {
-  int l = 0;
-  while ((1 << l) < v) ++l;
-  return l;
-}
-
 template <typename T, int W, bool VEC>
 int level1d_inv_tiled(const Inv1dGeom& g, const void* s, int64_t ss, const void* d,
                       int64_t dst, void* x, int64_t xs, bool vout, const int* offs,
@@ -453,19 +674,20 @@ extern "C" {
 // scaling taps then nd detail taps; dmin is the smallest offset and span
 // the largest minus the smallest.  Bands that reach too far for one
 // tile's window in shared memory are refused with
-// cudaErrorInvalidConfiguration (launch() in common.cuh).
+// cudaErrorInvalidConfiguration (launch() in common.cuh).  A level of
+// fewer than min_pairs output pairs (B n/2) takes the first form.
 int wtt_level1d_fw(int dtype, int B, int n, const void* x, int64_t xs, void* s,
                    int64_t ss, void* d, int64_t ds, const int* offs,
                    const void* coefs, int ns, int nd, int dmin, int span,
-                   void* stream) {
+                   int64_t min_pairs, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case wtt::F32:
-      return wtt::level1d_fw<float>(B, n, x, xs, s, ss, d, ds, offs, coefs, ns, nd, dmin, span, st);
+      return wtt::level1d_fw<float>(B, n, x, xs, s, ss, d, ds, offs, coefs, ns, nd, dmin, span, min_pairs, st);
     case wtt::F64:
-      return wtt::level1d_fw<double>(B, n, x, xs, s, ss, d, ds, offs, coefs, ns, nd, dmin, span, st);
+      return wtt::level1d_fw<double>(B, n, x, xs, s, ss, d, ds, offs, coefs, ns, nd, dmin, span, min_pairs, st);
     case wtt::BF16:
-      return wtt::level1d_fw<__nv_bfloat16>(B, n, x, xs, s, ss, d, ds, offs, coefs, ns, nd, dmin, span, st);
+      return wtt::level1d_fw<__nv_bfloat16>(B, n, x, xs, s, ss, d, ds, offs, coefs, ns, nd, dmin, span, min_pairs, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

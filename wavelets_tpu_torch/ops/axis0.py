@@ -25,7 +25,14 @@ Both are driven by the wavelet's bands (ops/bands.py), as kernels A-H are;
 the plain versions are the 1-D passes of ops/level2d.py along dim -2 (in
 halo mode over ``[above; x; below]``, without a wrap).  They replace the
 TPU kernels of ``wavelets_tpu/ops/pallas/axis0.py``, the halo mode its
-``_ext`` variants (see csrc/axis0.cu).  A tensor on the CPU takes the plain PyTorch version
+``_ext`` variants (see csrc/axis0.cu).  The inverse runs on persistent
+blocks that stage work items (32 output pairs of a strip of columns of
+one or several batch items) with 16-byte copies, the next item's while
+this one's taps run, each staged row's source (wrap, halo, corner) picked
+while staging, with the bands in registers as windows of 8 or 16 offsets
+(:func:`inv_window`); a span of 16 or more takes its first form, one
+block per tile.  :func:`inv_plan` and :func:`inv_smem` mirror its launch.
+A tensor on the CPU takes the plain PyTorch version
 (``axis0_fw_plain``, ``axis0_inv_plain``); a CUDA tensor launches the
 kernel or raises.  Arithmetic runs in float32 for float32 and bfloat16
 storage (bfloat16 outputs are rounded once) and in float64 for float64.
@@ -35,22 +42,32 @@ from __future__ import annotations
 
 import ctypes
 from functools import lru_cache
+from typing import NamedTuple
 
 import torch
 
 from . import build
-from .bands import acc_dtype, band_reach, band_table, syn_reach
+from .bands import acc_dtype, band_reach, band_table, syn_reach, \
+    synthesis_bands
 from .level2d import _analysis, _check_disjoint, _check_input, _check_plane, \
     _synthesis
 
 __all__ = ["LAUNCHES", "PLAIN_CALLS", "axis0_fw", "axis0_fw_plain",
-           "axis0_inv", "axis0_inv_plain", "halo_reach"]
+           "axis0_inv", "axis0_inv_plain", "halo_reach", "inv_window",
+           "inv_smem", "inv_plan"]
 
 # the halo mode counts apart from the periodic one
 LAUNCHES = {"axis0_fw": 0, "axis0_inv": 0, "axis0_fw_halo": 0,
             "axis0_inv_halo": 0}
 PLAIN_CALLS = {"axis0_fw": 0, "axis0_inv": 0, "axis0_fw_halo": 0,
                "axis0_inv_halo": 0}
+
+# kernel J (csrc/axis0.cu): the tiled form's window bounds, output pairs of
+# a work item and column groups of a strip; the first form's output pairs
+# and lanes per block
+INV_WINDOWS = (8, 16)
+_JT_TR, _JT_MIN_TR, _JT_GROUPS, _JT_SPREAD = 32, 8, 32, 512
+_A0_TR, _A0_LANES = 32, 32
 
 
 @lru_cache(maxsize=None)
@@ -174,6 +191,106 @@ def _inv_halos(a, wt, corner, halos):
     if len(halos) != 4:
         raise ValueError("halos must be (a_above, a_below, d_above, d_below)")
     return _check_halos(halos, a, halo_reach(wt, True), True)
+
+
+# --- kernel J's forms (mirrors of csrc/axis0.cu) ----------------------------
+
+def _syn_table(wt):
+    offs = [int(o) for d, _ in synthesis_bands(wt) for o in d]
+    return min(offs), max(offs) - min(offs), len(offs)
+
+
+def inv_window(wt) -> int:
+    """The window bound of kernel J's tiled form for ``wt``'s synthesis
+    bands: the smallest of INV_WINDOWS above their span, or 0 where the
+    span is 16 or more and the first form runs.  csrc/axis0.cu (axis0_inv)
+    makes the same choice, for the periodic and the halo mode alike."""
+    span = _syn_table(wt)[1]
+    return next((w for w in INV_WINDOWS if span < w), 0)
+
+
+def inv_smem(wt, dtype) -> int:
+    """Shared bytes of one block of kernel J in the form
+    :func:`inv_window` picks; mirrors csrc/axis0.cu: the tiled form's two
+    stages, each the a and d rows of a full item's window (JT_TR + span
+    rows of a strip, JT_GROUPS V columns, whatever the shape), or the
+    first form's two windows of A0_TR + span rows of A0_LANES lanes in the
+    arithmetic type; and the band table."""
+    _, span, taps = _syn_table(wt)
+    acc = acc_dtype(dtype).itemsize
+    table = taps * (acc + 4)
+    if not inv_window(wt):
+        return 2 * (_A0_TR + span) * _A0_LANES * acc + table
+    size = torch.empty((), dtype=dtype).element_size()
+    strip = _JT_GROUPS * (16 // acc)
+    return 2 * 2 * (_JT_TR + span) * strip * size + table
+
+
+class InvPlan(NamedTuple):
+    """Kernel J's launch as csrc/axis0.cu (axis0_inv_tiled) plans it: the
+    window (0: the first form, no other field set), the staging path
+    (16 or 4 bytes), and the tiled form's geometry (InvA0Geom)."""
+    window: int
+    staging: int = 0
+    tr: int = 0         # output pairs of a work item
+    cw: int = 0         # columns of a strip
+    ctiles: int = 0
+    rtiles: int = 0
+    items: int = 0
+    bsh: int = 0        # log2 batch items of a work item
+    gsh: int = 0        # log2 column groups of a batch item's row
+    ps: int = 0         # staged elements of one row of one batch item
+    lsh: int = 0        # log2 threads per staged row
+    smem: int = 0
+
+
+def _ceil_log2(v):
+    return (v - 1).bit_length()
+
+
+def _words16(t, e):
+    return (t.data_ptr() % 16 == 0 and t.stride(0) % e == 0
+            and t.stride(1) % e == 0)
+
+
+def inv_plan(a, d, wt, corner=None, halos=None) -> InvPlan:
+    """How kernel J runs the level of the planes ``a`` and ``d`` ``(B, Rh,
+    C)`` (with a corner or halos, as :func:`axis0_inv` takes them): a pure
+    function of their shapes, strides and data pointers, mirroring
+    csrc/axis0.cu.  The 16-byte staging path needs C and every view it
+    reads in whole 16-byte words (base, batch and row stride)."""
+    window = inv_window(wt)
+    if not window:
+        return InvPlan(0, smem=inv_smem(wt, a.dtype))
+    B, Rh, C = a.shape
+    size = a.element_size()
+    e, v = 16 // size, 16 // acc_dtype(a.dtype).itemsize
+    strip = _JT_GROUPS * v
+    views = [a, d] + ([corner] if corner is not None and corner.numel()
+                      else []) + list(halos or ())
+    vec = C % e == 0 and all(_words16(t, e) for t in views)
+    cw = min(C, strip)
+    ps = -(-cw // e) * e
+    gsh = _ceil_log2(-(-cw // v))
+    bsh = 0
+    while ((2 << bsh) <= (_JT_GROUPS >> gsh) and (2 << bsh) * ps <= strip
+           and (1 << bsh) < B):
+        bsh += 1
+    ctiles = -(-C // cw)
+
+    def count(tr, bsh):
+        return ctiles * -(-Rh // tr) * -(-B // (1 << bsh))
+
+    tr = _JT_TR        # a small level: fewer batch items, then fewer pairs
+    while count(tr, bsh) < _JT_SPREAD and (bsh > 0 or tr > _JT_MIN_TR):
+        if bsh > 0:
+            bsh -= 1
+        else:
+            tr //= 2
+    return InvPlan(window, 16 if vec else 4, tr, cw, ctiles, -(-Rh // tr),
+                   count(tr, bsh), bsh, gsh, ps,
+                   min(_ceil_log2(ps // e if vec else ps), 8),
+                   inv_smem(wt, a.dtype))
 
 
 # --- kernels -----------------------------------------------------------------

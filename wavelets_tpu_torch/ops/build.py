@@ -67,9 +67,9 @@ _SIGNATURES = {
     "wtt_tail_inv": [_I, _I, _I, _I, _I, _P, _L, _L, _P, _L, _L, _P, _P, _P,
                      _P, _L, _P],
     # dtype, B, n, x, xs, s, ss, d, ds, offs, coefs, ns, nd, dmin, span,
-    # stream
+    # min_pairs, stream
     "wtt_level1d_fw": [_I, _I, _I, _P, _L, _P, _L, _P, _L, _P, _P, _I, _I, _I,
-                       _I, _P],
+                       _I, _L, _P],
     # dtype, B, nh, s, ss, d, ds, x, xs, offs, coefs, counts[], smin, span,
     # stream
     "wtt_level1d_inv": [_I, _I, _I, _P, _L, _P, _L, _P, _L, _P, _P, _P, _I,

@@ -13,12 +13,16 @@ writes the merged ``(B, 2nh)`` rows.
 Both are driven by the wavelet's bands (ops/bands.py), as the 2-D kernels
 are; the plain versions are the 1-D passes of ops/level2d.py.  They
 replace the TPU kernels of ``wavelets_tpu/ops/pallas/dwt1d.py`` and
-``wide1d.py`` (see csrc/level1d.cu).  The inverse runs on persistent
-blocks that stage tiles of s and d (a stretch of one row, or several short
-rows) with 16-byte copies, the next tile's while this one's taps run, with
-the bands in registers as windows of 8 or 16 offsets
-(:func:`inv1d_window`); a span of 16 or more takes its first form, one
-block per tile.  A tensor on the CPU takes the plain
+``wide1d.py`` (see csrc/level1d.cu).  Both run on persistent blocks
+that stage tiles (a stretch of one row, or several short rows: of x for
+the forward, of s and d for the inverse) with 16-byte copies, the next
+tile's while this one's taps run, with the bands in registers as windows
+of 8 or 16 offsets (:func:`fw1d_window`, :func:`inv1d_window`); a span of
+16 or more takes the first form, one block per tile, and so does a forward
+level of fewer than ``FW1D_MIN_PAIRS`` output pairs, where the tiled
+form's fixed costs outweigh its staging.  :func:`fw1d_plan`,
+:func:`fw1d_smem` and :func:`inv1d_smem` mirror the launches.  A tensor
+on the CPU takes the plain
 PyTorch version (``level1d_fw_plain``, ``level1d_inv_plain``); a CUDA
 tensor launches the kernel or raises.  Arithmetic runs in float32 for
 float32 and bfloat16 storage (bfloat16 outputs are rounded once per level)
@@ -28,16 +32,18 @@ and in float64 for float64.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from . import build
-from .bands import acc_dtype, band_table, synthesis_bands
+from .bands import acc_dtype, band_table, level_bands, synthesis_bands
 from .level2d import DTYPES, _analysis, _check_disjoint, _synthesis
 
 __all__ = ["DTYPES", "LAUNCHES", "PLAIN_CALLS", "level1d_fw",
            "level1d_fw_plain", "level1d_inv", "level1d_inv_plain",
-           "inv1d_window", "inv1d_smem"]
+           "inv1d_window", "inv1d_smem", "fw1d_window", "fw1d_smem",
+           "fw1d_plan", "FW1D_MIN_PAIRS"]
 
 LAUNCHES = {"level1d_fw": 0, "level1d_inv": 0}
 PLAIN_CALLS = {"level1d_fw": 0, "level1d_inv": 0}
@@ -48,6 +54,15 @@ PLAIN_CALLS = {"level1d_fw": 0, "level1d_inv": 0}
 INV1D_WINDOWS = (8, 16)
 _FI_GROUPS, _FI_SLACK, _FI_PAD = 512, 32, 64
 _F_TK = 256
+# kernel E: the same for the tiled forward, and the first form's pairs
+FW1D_WINDOWS = (8, 16)
+_FE_GROUPS, _FE_SLACK, _FE_PAD = 512, 32, 64
+_FE_SPREAD, _FE_MIN_GROUPS = 512, 16
+_E_TK = 512
+# a forward level of fewer output pairs (B n/2) takes the first form:
+# below it the first form measured faster on the H100 (chip_smoke.py
+# phase 5c, "e_forms_by_size")
+FW1D_MIN_PAIRS = 1 << 18
 
 
 def check_rows(t, name, shape=None, dtype=None, device=None):
@@ -150,14 +165,96 @@ def inv1d_smem(wt, dtype) -> int:
     return 2 * stage * size + table
 
 
-def _launch_fw(x, wt, s, d, stream):
+def _ana_table(wt):
+    ds, _, dd, _ = level_bands(wt)
+    offs = [int(o) for o in ds] + [int(o) for o in dd]
+    return min(offs), max(offs) - min(offs), len(offs)
+
+
+def fw1d_window(wt) -> int:
+    """The window bound of kernel E's tiled form for ``wt``'s analysis
+    bands: the smallest of FW1D_WINDOWS above their span (both bands'
+    offsets fit it), or 0 where the span is 16 or more and the first form
+    runs.  csrc/level1d.cu (level1d_fw) makes the same choice, as kernel A
+    does for the same bands (level2d.fw_window)."""
+    span = _ana_table(wt)[1]
+    return next((w for w in FW1D_WINDOWS if span < w), 0)
+
+
+def fw1d_smem(wt, dtype, tiled=True) -> int:
+    """Shared bytes of one block of kernel E in the form
+    :func:`fw1d_window` picks (the first form where ``tiled`` is false,
+    as for a level below ``FW1D_MIN_PAIRS``); mirrors csrc/level1d.cu:
+    the tiled form's two stages, each room for one row of a full tile (2
+    FE_GROUPS V samples, V = 16 bytes of the arithmetic type) plus slack
+    and pad whatever the shape (fw1d_tiled_smem), or the first form's
+    window for a row of at least ``_E_TK`` pairs; and the band table."""
+    _, span, taps = _ana_table(wt)
+    acc = acc_dtype(dtype).itemsize
+    table = taps * (acc + 4)
+    if not (tiled and fw1d_window(wt)):
+        return (2 * _E_TK + span) * acc + table
+    size = torch.empty((), dtype=dtype).element_size()
+    stage = 2 * _FE_GROUPS * (16 // acc) + _FE_SLACK + _FE_PAD
+    return 2 * stage * size + table
+
+
+class Fw1dPlan(NamedTuple):
+    """Kernel E's launch as csrc/level1d.cu (level1d_fw) plans it: the
+    window (0: the first form, no other field set), the staging path (16
+    or 4 bytes), and the tiled form's geometry (Fw1dGeom): pairs per
+    tile (a full tile, or a 512th of a small level), tiles per row, rows
+    per work item, log2 pair groups of a row, staged elements per row,
+    their shift, log2 threads per staged row."""
+    window: int
+    staging: int = 0
+    tk: int = 0
+    tiles: int = 0
+    rpb: int = 0
+    gsh: int = 0
+    ps: int = 0
+    sh: int = 0
+    lsh: int = 0
+    items: int = 0
+    smem: int = 0
+
+
+def fw1d_plan(x, wt, min_pairs=FW1D_MIN_PAIRS) -> Fw1dPlan:
+    """How kernel E runs the level of ``x (B, n)``: a pure function of its
+    shape, row stride and data pointer, mirroring csrc/level1d.cu.  A
+    level of fewer than ``min_pairs`` output pairs takes the first form.
+    The 16-byte staging path needs x's base, row stride and n in whole
+    16-byte words."""
+    window = fw1d_window(wt)
+    B, n = x.shape
+    if not window or B * (n // 2) < min_pairs:
+        return Fw1dPlan(0, smem=fw1d_smem(wt, x.dtype, tiled=False))
+    dmin, span, _ = _ana_table(wt)
+    e, v = 16 // x.element_size(), 16 // acc_dtype(x.dtype).itemsize
+    full, nh = _FE_GROUPS * v, n // 2
+    vec = n % e == 0 and x.data_ptr() % 16 == 0 and x.stride(0) % e == 0
+    sh = dmin % e if vec else 0
+    want = -(-(B * nh // _FE_SPREAD) // v) * v     # a 512th of the level
+    per = min(full, max(_FE_MIN_GROUPS * v, want))
+    tk = min(nh, per)
+    tiles = -(-nh // tk)
+    gsh = (-(-tk // v) - 1).bit_length()
+    ps = -(-(sh + 2 * tk - 1 + span) // e) * e
+    rpb = max(1, min(_FE_GROUPS >> gsh, (2 * full + _FE_SLACK) // ps,
+                     per // tk))
+    lsh = min(((ps // e if vec else ps) - 1).bit_length(), 8)
+    return Fw1dPlan(window, 16 if vec else 4, tk, tiles, rpb, gsh, ps, sh,
+                    lsh, -(-B // rpb) * tiles, fw1d_smem(wt, x.dtype))
+
+
+def _launch_fw(x, wt, s, d, stream, min_pairs=FW1D_MIN_PAIRS):
     table = band_table(wt, False, x.dtype, x.device)
     B, n = x.shape
     build.check(build.library().wtt_level1d_fw(
         build.dtype_code(x.dtype), B, n, x.data_ptr(), x.stride(0),
         s.data_ptr(), s.stride(0), d.data_ptr(), d.stride(0),
         table.offs.data_ptr(), table.coefs.data_ptr(), *table.counts,
-        table.dmin, table.span, stream), "level1d_fw")
+        table.dmin, table.span, min_pairs, stream), "level1d_fw")
 
 
 def _launch_inv(s, d, wt, out, stream):
