@@ -31,7 +31,11 @@ exits non-zero:
                   and one 2^20 row; E's forms (windows of 16 and 8, the
                   first form: cdf97, db4, haar, sym5, db10) on the same
                   rows and both paths, the 4-byte path writing into the
-                  halves of odd-width rows.
+                  halves of odd-width rows; H's forms (windows of 8 and 16,
+                  the first form: cdf97, db4, sym5, db10) on both staging
+                  paths, 700 rows of 2 to one row of 2^14 through 14
+                  levels, bit for bit against the first form and in
+                  place.
   2c. kernels3d -- the axis-0 kernels (forward I, inverse J, and J reading
                   a separate corner) the same way, on (B, R, C) views with
                   gaps between rows and batch items, R = 2, narrow C and
@@ -59,11 +63,13 @@ exits non-zero:
                   against their plain versions; R = 2H, narrow C and
                   strided views, four wavelets, three dtypes.
   2f. kernelsstage -- kernel N (levels 1 and 2 in one launch) against its
-                  plain version: haar, cdf97, db4 and coif4 (a long table),
-                  1024^2, a strided ragged 1000 x 1544, a batch of 2 and
-                  4 x 4, LL2 into a scratch or into the packed corner, three
-                  dtypes; and whether it equals two launches of A bit for
-                  bit.
+                  plain version: haar, cdf97, db4 (the strip form) and
+                  coif4 (a long table: the first form), 1024^2, a ragged
+                  1000 x 1544, a batch of 2 and 4 x 4, each strided (the
+                  4-byte staging path) and contiguous (the 16-byte path),
+                  LL2 into a scratch or into the packed corner, three
+                  dtypes; whether it equals two launches of A bit for bit,
+                  and the strip form its first form.
   3. main      -- dwt/idwt of the 16384^2 float32 image, cdf97 lifting, 8
                   levels, through the public entry points; the launch counts
                   show the route, the round trip is checked, and smaller
@@ -147,17 +153,23 @@ exits non-zero:
                   at one shard's (4096, 16384), at 256^3; E at 2^24 and
                   over the 16384 rows of 16384, cdf97 and db4), by
                   profiler time and CUDA events; kernel E's two forms by
-                  level size, which set its size bound.
-  5d. forms    -- which form of E, J and J in halo mode each wavelet
-                  launches, read from the card by the profiler: the tiled
-                  form below a span of 16 (E: also from FW1D_MIN_PAIRS
-                  output pairs a level), the first form otherwise.  It runs
+                  level size, which set its size bound; kernel N at
+                  16384^2 levels 1-2 in both forms beside the two A
+                  launches it replaces (and in bf16, and for db4), kernel
+                  H at (4096, 4096) db4 L8 in both forms beside a chain of
+                  eight polyphase conv1d calls, and H's forms by size.
+  5d. forms    -- which form of E, J, J in halo mode, N and H each
+                  wavelet launches, read from the card by the profiler:
+                  the tiled (N: strip, H: staged) form below a span of 16
+                  (E: also from FW1D_MIN_PAIRS output pairs a level), the
+                  first form otherwise.  It runs
                   after the traces: with these short profiler sessions in
                   phase 2, every later trace lost one launch.
 
 Then the run's wall time, nvidia-smi's line again, the per-kernel JSON line
 (a row per kernel, and one per TPU kernel that a route of 3g maps onto one
-of them; "redesigned" names a kernel's Hopper form: "tiled" or "cluster"),
+of them; "redesigned" names a kernel's Hopper form: "tiled", "cluster",
+"strips" or "staged"),
 and last {"ok": true, "device": {...}}.
 """
 
@@ -209,6 +221,13 @@ FW1D_WAVELETS = (("cdf97", "lifting"), ("haar", "lifting"),
                  ("db4", "filter"), ("sym5", "filter"), ("db10", "filter"))
 INV_A0_WAVELETS = (("cdf97", "lifting"), ("db4", "filter"),
                    ("coif4", "filter"), ("db10", "filter"))
+# kernel H's forms: windows of 4 (db4) and 8 offsets (cdf97, sym5), the
+# first form (db10); rows (B, n, L): short rows several to a block, the
+# batched path's rows, rows of 2^11 through 11 levels, one row of 2^14
+# through 14 (the 2^20 db2 L20 inverse's tail; 2^13 in f64)
+TAIL_INV_WAVELETS = INV1D_WAVELETS
+TAIL_INV_ROWS = ((700, 2, 1), (5, 8, 3), (3, 96, 5), (4096, 4096, 8),
+                 (3, 1 << 11, 11), (1, 1 << 14, 14))
 SIZE, LEVELS = 16384, 8
 # the 1-D main paths: name, shape, wavelet, levels, packet transform?
 PATHS1D = (("batched_4096x4096_db4_L8", (4096, 4096), ("db4", "filter"), 8,
@@ -896,6 +915,7 @@ def phase_kernels1d(dev):
                 cases += 1
     cases += check_inv1d(dev, rng, worst)
     cases += check_fw1d(dev, rng, worst)
+    cases += check_tail_inv(dev, rng, worst)
     emit({"phase": "kernels1d", "cases": cases,
           "rows": [list(r) for r in rows],
           "tolerance": {str(k)[6:]: v for k, v in TOL.items()},
@@ -986,6 +1006,54 @@ def check_fw1d(dev, rng, worst):
                         errs[f"level1d_fw_tiled_{path}byte"] = max(
                             rel_err(s, rs), rel_err(d, rd))
                 check_all("kernels1d", errs, (wname, B, n), dt, tol, worst)
+                cases += 1
+    return cases
+
+
+def check_tail_inv(dev, rng, worst):
+    """Kernel H's forms: the staged form through the wrapper (windows of 4:
+    db4; of 8: cdf97, sym5) against its plain version and bit for bit
+    against the first form (launched with staging off), over NaN-filled
+    outputs and in place (out = y); db10 takes the first form.  On the
+    16-byte staging path (contiguous rows) and the 4-byte path (rows one
+    element in, an odd row stride); short rows several to a block (700
+    rows of 2, (5, 8), (3, 96)), the main path's rows, rows of 2^11 and
+    one row of 2^14 (the 2^20 db2 L20 inverse's tail; 2^13 in f64)."""
+    cases = 0
+    nan = float("nan")
+    stream = torch.cuda.current_stream().cuda_stream
+    for (wname, kind) in TAIL_INV_WAVELETS:
+        wt = wavelet(wname, kind)
+        staged = bool(tail1d.inv_window(wt))
+        for dt, tol in TOL.items():
+            for B, n, L in TAIL_INV_ROWS:
+                if not tail1d.tail1d_fits(n, wt, dt, inverse=True):
+                    n, L = n // 2, L - 1
+                errs = {}
+                for path in ("16", "4"):
+                    y = torch.from_numpy(rng.standard_normal(
+                        (B, n + 3) if path == "4" else (B, n))).to(dev).to(dt)
+                    y = y[:, 1:n + 1] if path == "4" else y
+                    plan = tail1d.inv_plan(y, wt, L)
+                    want = 16 if path == "16" and n * y.element_size() % 16 \
+                        == 0 else 4
+                    require(plan.staging == (want if staged else 0),
+                            f"H {wname} {(B, n)} {dt} stages by {want} bytes: "
+                            f"{plan}")
+                    ref = tail1d.tail1d_inv_plain(y, wt, L)
+                    got = torch.full((B, n), nan, dtype=dt, device=dev)
+                    launched("tail1d_inv",
+                             lambda: tail1d.tail1d_inv(y, wt, L, out=got))
+                    errs[f"tail1d_inv_{path}byte"] = rel_err(got, ref)
+                    first = torch.full((B, n), nan, dtype=dt, device=dev)
+                    tail1d._launch_inv(y, wt, L, first, stream, staged=False)
+                    yy = y.clone()
+                    tail1d.tail1d_inv(yy, wt, L, out=yy)
+                    torch.cuda.synchronize()
+                    require(torch.equal(got, first) and torch.equal(yy, got),
+                            f"H {wname} {(B, n)} L{L} {dt} {path}-byte: "
+                            "bit-equal to its first form and in place")
+                check_all("kernels1d", errs, (wname, B, n, L), dt, tol, worst)
                 cases += 1
     return cases
 
@@ -1264,49 +1332,83 @@ def phase_kernelshalo(dev, shapes=SHAPES_HALO):
 
 
 def phase_kernelsstage(dev):
+    """Kernel N through its wrapper (the strip form below a span of 16, the
+    first form above: coif4) on strided views (the 4-byte staging path)
+    and contiguous images (the 16-byte path), LL2 into a scratch and into
+    the packed corner, over NaN-filled planes: against the plain version,
+    bit for bit against two A launches (f32, bf16), and, where the strip
+    form runs, bit for bit against the first form (launched with strips
+    off) in every dtype."""
     rng = np.random.default_rng(6)
-    worst, bit_equal = {}, {}
+    worst, bit_equal, first_equal = {}, {}, {}
     cases = 0
     nan = float("nan")
+    stream = torch.cuda.current_stream().cuda_stream
     for (wname, kind) in WAVELETS_STAGE:
         wt = wavelet(wname, kind)
+        strips = bool(stage2d.stage_window(wt))
         for dt, tol in TOL.items():
             for B, m, n in SHAPES_STAGE:
-                x = strided(rng, (B, m, n), dt, dev)
-                ref = stage2d.stage2_fw_plain(x, wt)
-                errs = {}
-                # LL2 into a scratch of its own, or into the packed corner
-                # (a transform of two levels)
-                for mode in ("scratch", "corner"):
-                    y = torch.full((B, m, n), nan, dtype=dt, device=dev)
-                    ll2 = (y[:, : m >> 2, : n >> 2] if mode == "corner"
-                           else torch.empty_like(ref[0]))
-                    outs = (ll2, *level2d.detail_planes(y, 1),
-                            *level2d.detail_planes(y, 2))
-                    launched("stage2_fw", lambda: stage2d.stage2_fw(
-                        x, wt, outs))
-                    errs[f"stage2_fw_{mode}"] = max(map(rel_err, outs, ref))
-                    left = torch.isnan(y)
-                    require(bool(left[:, : m >> 2, : n >> 2].all())
-                            if mode == "scratch" else not bool(left.any()),
-                            f"stage2_fw writes exactly its planes: {wname} "
-                            f"{(B, m, n)} {dt} {mode}")
-                ll1, *d1 = level2d.level_fw(x, wt)
-                two = level2d.level_fw(ll1, wt)
-                key = str(dt)[6:]
-                bit_equal[key] = bit_equal.get(key, True) and all(
-                    torch.equal(g, r) for g, r in zip(
-                        outs, (two[0], *d1, *two[1:])))
-                check_all("kernelsstage", errs, (wname, B, m, n), dt, tol,
-                          worst)
-                cases += 1
+                xs_ = strided(rng, (B, m, n), dt, dev)
+                for path in ("4", "16"):
+                    # both staging paths on the same image
+                    x = xs_ if path == "4" else xs_.contiguous()
+                    # 16-byte words where x's base, strides and n allow
+                    # (not n = 4 in bf16)
+                    want = 16 if path == "16" and n * x.element_size() % 16 \
+                        == 0 else 4
+                    plan = stage2d.stage_plan(x, wt)
+                    require(plan.staging == (want if strips else 0),
+                            f"N {wname} {(B, m, n)} {dt} stages by {want} "
+                            f"bytes: {plan}")
+                    ref = stage2d.stage2_fw_plain(x, wt)
+                    errs = {}
+                    # LL2 into a scratch of its own, or into the packed
+                    # corner (a transform of two levels)
+                    for mode in ("scratch", "corner"):
+                        y = torch.full((B, m, n), nan, dtype=dt, device=dev)
+                        ll2 = (y[:, : m >> 2, : n >> 2] if mode == "corner"
+                               else torch.empty_like(ref[0]))
+                        outs = (ll2, *level2d.detail_planes(y, 1),
+                                *level2d.detail_planes(y, 2))
+                        launched("stage2_fw", lambda: stage2d.stage2_fw(
+                            x, wt, outs))
+                        errs[f"stage2_fw_{mode}_{path}byte"] = max(
+                            map(rel_err, outs, ref))
+                        left = torch.isnan(y)
+                        require(bool(left[:, : m >> 2, : n >> 2].all())
+                                if mode == "scratch" else not bool(left.any()),
+                                f"stage2_fw writes exactly its planes: {wname} "
+                                f"{(B, m, n)} {dt} {mode} {path}-byte")
+                    ll1, *d1 = level2d.level_fw(x, wt)
+                    two = level2d.level_fw(ll1, wt)
+                    key = str(dt)[6:]
+                    bit_equal[key] = bit_equal.get(key, True) and all(
+                        torch.equal(g, r) for g, r in zip(
+                            outs, (two[0], *d1, *two[1:])))
+                    if strips:
+                        yf = torch.full((B, m, n), nan, dtype=dt, device=dev)
+                        first = (yf[:, : m >> 2, : n >> 2],
+                                 *level2d.detail_planes(yf, 1),
+                                 *level2d.detail_planes(yf, 2))
+                        stage2d._launch(x, wt, first, stage2d.stage_tile(
+                            wt, dt), stream, strips=False)
+                        torch.cuda.synchronize()
+                        first_equal[key] = first_equal.get(key, True) and \
+                            torch.equal(yf, y)
+                    check_all("kernelsstage", errs, (wname, B, m, n), dt, tol,
+                              worst)
+                    cases += 1
     require(bit_equal["float32"] and bit_equal["bfloat16"],
             f"N bit-equal to two A launches in f32 and bf16: {bit_equal}")
+    require(all(first_equal.values()),
+            f"N's strip form bit-equal to its first form: {first_equal}")
     emit({"phase": "kernelsstage", "cases": cases,
           "shapes": [list(r) for r in SHAPES_STAGE],
           "wavelets": [nm for nm, _ in WAVELETS_STAGE],
           "tolerance": {str(k)[6:]: v for k, v in TOL.items()},
-          "worst_rel_err": worst, "bit_equal_to_two_A_launches": bit_equal})
+          "worst_rel_err": worst, "bit_equal_to_two_A_launches": bit_equal,
+          "strips_bit_equal_to_first_form": first_equal})
 
 
 def phase_main(x):
@@ -1980,16 +2082,20 @@ def e_form_times(dev):
 
 
 def phase_forms(dev):
-    """Phase 5d: which form of kernels E and J each wavelet launches, read
-    from the card (the kernel's name in a profiler trace), against what
-    the C selectors should pick.  E (FW1D_WAVELETS) on one 2^20 row, the
+    """Phase 5d: which form of kernels E, J, N and H each wavelet launches,
+    read from the card (the kernel's name in a profiler trace), against
+    what the C selectors should pick.  E (FW1D_WAVELETS) on one 2^20 row, the
     tiled form for a window (cdf97, haar, db4), the first form otherwise
     (sym5, db10), and on (3, 4096), below FW1D_MIN_PAIRS, the first form
     for every wavelet (the tiled one with a bound of 0 pairs); J
     (INV_A0_WAVELETS) on a (2, 1024, 512) level, the tiled form for
     cdf97, db4 and coif4, the first for db10; J in halo mode
     (WAVELETS_HALO and db10) on a (2, 48, 160) level with its wrapped
-    rows as halos, which must equal the periodic J bit for bit."""
+    rows as halos, which must equal the periodic J bit for bit; N
+    (WAVELETS_STAGE) on a 512^2 image, the strip form below a span of 16
+    (cdf97, haar, db4), the first form for coif4; H (TAIL_INV_WAVELETS) on
+    (64, 4096) L8, the staged form below a span of 16 (cdf97, db4, sym5),
+    the first form for db10 and with staging off."""
     rng = np.random.default_rng(8)
     stream = torch.cuda.current_stream().cuda_stream
     forms = {}
@@ -2032,6 +2138,25 @@ def phase_forms(dev):
                             axis0.axis0_inv(a, d, wt)),
                 f"halo inv with wrapped halos equals the periodic kernel: "
                 f"{wname} (2, 48, 160)")
+    for (wname, kind) in WAVELETS_STAGE:
+        wt = wavelet(wname, kind)
+        xi = randn(1, 512, 512)
+        o = stage2d.stage2_fw(xi, wt)
+        forms[f"N {wname}"] = require_form(
+            lambda: stage2d.stage2_fw(xi, wt, o),
+            "stage2_strip_kernel" if stage2d.stage_window(wt)
+            else "stage2_fw_kernel", f"N {wname}")
+    for (wname, kind) in TAIL_INV_WAVELETS:
+        wt = wavelet(wname, kind)
+        yi = randn(64, 4096)
+        o = torch.empty_like(yi)
+        forms[f"H {wname}"] = require_form(
+            lambda: tail1d.tail1d_inv(yi, wt, 8, out=o),
+            "tail1d_inv_staged_kernel" if tail1d.inv_window(wt)
+            else "tail1d_inv_kernel", f"H {wname}")
+        forms[f"H {wname} staging off"] = require_form(
+            lambda: tail1d._launch_inv(yi, wt, 8, o, stream, staged=False),
+            "tail1d_inv_kernel", f"H {wname} with staging off")
     emit({"phase": "forms", "forms": forms})
 
 
@@ -2099,7 +2224,9 @@ def profiled_times(x, xs, rows):
         torch.cuda.synchronize()
         require(torch.equal(Wp, W), f"modwt_fw_levels with a cluster of {Pc}")
         sizes[f"P{Pc}"] = device_us(fn)
+    nh_times = n_h_times(x, xs, rows)
     emit({"phase": "timesprofiled", "card": torch.cuda.get_device_name(0),
+          **nh_times,
           "level_inv_16384_level1_device_us": rows["level_inv"]["device_us"],
           "level_fw_16384_level1_device_us": rows["level_fw"]["device_us"],
           "level_fw_16384_level1_bf16_device_us": fw_bf16_us,
@@ -2111,6 +2238,102 @@ def profiled_times(x, xs, rows):
               "chain_device_us": r["chain_device_us"],
               "library_device_us": r["library_device_us"],
               "cluster": r["cluster"], "cluster_sizes_device_us": sizes}})
+
+
+def n_h_times(x, xs, rows):
+    """Phase 5c: kernels N and H in both forms by profiler time (device us
+    per call) and CUDA events (ms).  N at 16384^2 levels 1-2, cdf97 f32:
+    the strip form (the wrapper's), its first form (launched with strips
+    off, stage_tile's tile) and the two A launches it replaces, into the
+    same planes; the strip form in bf16 and for db4.  H over the (4096,
+    4096) db4 L8 rows: the staged form, the first form (staging off), and
+    the chain of eight polyphase conv1d calls that computes the same
+    levels (one per level, on inputs prepared beforehand: a library
+    yardstick, not one call); and H's forms by size (``h_forms_by_size``):
+    one row of 2^14 and of 2^11 through every level (db2; the first is the
+    2^20 db2 L20 inverse's tail), and 1 to 4096 rows of 4096 (db4 L8),
+    each the less of two readings taken staged, first, staged, first."""
+    stream = torch.cuda.current_stream().cuda_stream
+    cdf, db4 = w.wavelet(w.wt.cdf97, "lifting"), wavelet("db4", "filter")
+    out = {}
+    xb = x[None]
+    y = torch.empty_like(xb)
+    outs = (torch.empty((1, SIZE // 4, SIZE // 4), dtype=x.dtype,
+                        device=x.device),
+            *level2d.detail_planes(y, 1), *level2d.detail_planes(y, 2))
+    ll1 = torch.empty((1, SIZE // 2, SIZE // 2), dtype=x.dtype,
+                      device=x.device)
+    tile = stage2d.stage_tile(cdf, x.dtype)
+    fns = {"strips": lambda: stage2d.stage2_fw(xb, cdf, outs),
+           "first_form": lambda: stage2d._launch(xb, cdf, outs, tile, stream,
+                                                 strips=False),
+           "two_A": lambda: (level2d.level_fw(xb, cdf, (ll1, *outs[1:4])),
+                             level2d.level_fw(ll1, cdf,
+                                              (outs[0], *outs[4:])))}
+    n = {k: {"device_us": device_us(f, calls=10),
+             "ms": P.med3(lambda _: f(), xb, 10) * 1e3}
+         for k, f in fns.items()}
+    for tag, xt, wt in (("bf16", xb.to(torch.bfloat16), cdf),
+                        ("db4", xb, db4)):
+        o = stage2d.stage2_fw(xt, wt)
+        f = lambda: stage2d.stage2_fw(xt, wt, o)    # noqa: E731
+        n[f"strips_{tag}"] = {"device_us": device_us(f, calls=10),
+                              "ms": P.med3(lambda _: f(), xt, 10) * 1e3}
+        del o, xt
+    del y, outs, ll1
+    r = rows["stage2_fw"]
+    r["device_us"] = n["strips"]["device_us"]
+    r["first_form_ms"] = n["first_form"]["ms"]
+    r["first_form_device_us"] = n["first_form"]["device_us"]
+    out["stage2_fw_16384_levels12"] = n
+
+    xb, L = xs[(4096, 4096)], 8
+    yb, xr, xf = (torch.empty_like(xb) for _ in range(3))
+    tail1d.tail1d_fw(xb, db4, L, out=yb)
+    nh = xb.shape[1] >> L
+    v, lib = yb[:, :nh], []
+    for l in range(L, 0, -1):
+        d = yb[:, nh: 2 * nh]
+        lib.append(library_inv1d_polyphase(v, d, db4))
+        v = level1d.level1d_inv_plain(v, d, db4)
+        nh *= 2
+    chain = lambda: [f() for f in lib]              # noqa: E731
+    ref = tail1d.tail1d_inv(yb, db4, L, out=xr)
+    lrel = rel_err(interleave1d(lib[-1]()), ref)
+    require(lrel <= LIBRARY_TOL, f"H's library chain: rel err {lrel:.3e}")
+    fns = {"staged": lambda: tail1d.tail1d_inv(yb, db4, L, out=xr),
+           "first_form": lambda: tail1d._launch_inv(yb, db4, L, xf, stream,
+                                                    staged=False),
+           "library_chain": chain}
+    h = {k: {"device_us": device_us(f), "ms": P.med3(lambda _: f(), xb, 20)
+             * 1e3} for k, f in fns.items()}
+    require(torch.equal(xf, xr), "H's forms agree at (4096, 4096) db4 L8")
+    del lib
+    r = rows["tail1d_inv"]
+    r["device_us"] = h["staged"]["device_us"]
+    r["first_form_ms"] = h["first_form"]["ms"]
+    r["first_form_device_us"] = h["first_form"]["device_us"]
+    r["library_chain_ms"] = h["library_chain"]["ms"]
+    r["library_chain_device_us"] = h["library_chain"]["device_us"]
+    r["library_calls"] = "a chain of 8 polyphase conv1d calls, one per level"
+    out["tail1d_inv_4096x4096_db4_L8"] = h
+
+    db2 = wavelet("db2", "filter")
+    rng = np.random.default_rng(10)
+    sweep = []
+    for B, n_, wt, L in ((1, 1 << 14, db2, 14), (1, 1 << 11, db2, 11),
+                         (1, 4096, db4, 8), (16, 4096, db4, 8),
+                         (256, 4096, db4, 8), (4096, 4096, db4, 8)):
+        yt = torch.from_numpy(rng.standard_normal((B, n_)).astype(
+            np.float32)).to(x.device)
+        ot = torch.empty_like(yt)
+        us = [device_us(lambda: tail1d._launch_inv(yt, wt, L, ot, stream,
+                                                   staged=st))
+              for st in (True, False, True, False)]
+        sweep.append({"rows": B, "n": n_, "wavelet": wt.name, "levels": L,
+                      "staged_us": min(us[0::2]), "first_us": min(us[1::2])})
+    out["h_forms_by_size"] = sweep
+    return out
 
 
 def tail_cluster_times(dev, wt):
@@ -2458,8 +2681,11 @@ def phase_timesroutes(x):
         rec.update(fw_launch_us=tf["launch_us"],
                    inv_launch_us=ti["launch_us"])
         if routes[0] == "stage":
-            require("stage2_fw_kernel" in tf["kernels"],
-                    f"the stage forward's trace shows kernel N: "
+            # N's form for cdf97: the strip form (stage2d.stage_window)
+            want = ("stage2_strip_kernel" if stage2d.stage_window(cdf)
+                    else "stage2_fw_kernel")
+            require(want in tf["kernels"],
+                    f"the stage forward's trace shows kernel N ({want}): "
                     f"{tf['kernels']}")
         out[name] = rec
     copy_ms = out["default"]["copy_ms"]
@@ -2488,12 +2714,7 @@ def phase_timesroutes(x):
     rows["stage2_fw"]["chain_ms"] = P.med3(lambda _: two_a(), xb, 10) * 1e3
     rows["stage2_fw"]["chain_device_us"] = device_us(two_a, calls=10)
     del ll1
-    # the kernel at a 16-quad tile, launched past the wrapper (which takes
-    # stage_tile's side): what the smaller tile costs
-    stream = torch.cuda.current_stream().cuda_stream
-    out["stage2_fw_tile16_ms"] = P.med3(
-        lambda _: stage2d._launch(xb, cdf, outs, 16, stream), xb, 10) * 1e3
-    out["stage2_fw_tile"] = stage2d.stage_tile(cdf, x.dtype)
+    out["stage2_fw_plan"] = stage2d.stage_plan(xb, cdf, outs)._asdict()
     del lib1, lib2
 
     # E, I, J and F at the split route's level-1 shapes: E over the 16384
@@ -2710,12 +2931,15 @@ def main():
                 "stage2_fw": "wavelets_tpu/ops/pallas/stage2d.py:154"}
     # the kernels redesigned for Hopper and their form: persistent blocks
     # staging 16-byte tiles with the bands in registers ("tiled", where
-    # the span is below 16), or a thread-block cluster per image or row
+    # the span is below 16), a thread-block cluster per image or row, N's
+    # persistent strips walked downward ("strips") and H's rows staged
+    # once ("staged"), both below a span of 16
     redesigned = {"tail_fw": "cluster", "tail_inv": "cluster",
                   "modwt_fw_levels": "cluster", "level_fw": "tiled",
                   "level_inv": "tiled", "level1d_fw": "tiled",
                   "level1d_inv": "tiled", "axis0_inv": "tiled",
-                  "axis0_inv_halo": "tiled"}
+                  "axis0_inv_halo": "tiled", "stage2_fw": "strips",
+                  "tail1d_inv": "staged"}
     # the TPU kernels that a route of phase 3g runs on a kernel above: its
     # name, the kernel, the row of measurements, the TPU kernel, and its
     # launches on that route
@@ -2750,7 +2974,10 @@ def main():
                                         "library_calls", "device_us",
                                         "library_device_us", "host_ms",
                                         "floor_ms", "cluster", "chain_ms",
-                                        "chain_device_us")
+                                        "chain_device_us", "first_form_ms",
+                                        "first_form_device_us",
+                                        "library_chain_ms",
+                                        "library_chain_device_us")
             if k in rows[name]}}
         for name in src] + [
         {"name": name, "route": "cuda",

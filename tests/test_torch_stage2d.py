@@ -217,3 +217,266 @@ def test_stage_wrapper_checks_its_inputs():
         pyramid2d.dwt2(x, wt, 2, route="fused")
     with pytest.raises(ValueError):
         pyramid2d.idwt2(x, wt, 2, route="stage")
+
+
+# --- kernel N's strip form: window, shared bytes, staging path, walk -------
+
+def _ana(wt):
+    """Smallest analysis offset and span, from the bands."""
+    ds, _, dd, _ = level2d.level_bands(wt)
+    offs = np.concatenate([ds, dd])
+    return int(offs.min()), int(offs.max() - offs.min())
+
+
+# the strip form's geometry worked out by hand from csrc/stage2d.cu for
+# cdf97 (offsets -4 .. 4: lo -4, hi 4) in float32 (V = 4): the LL1 window
+# row holds 512 bytes at most, 128 samples, so q2 = (128 + 1 - 4 - 4) / 2
+# rounded down to a multiple of 4 = 60, w1 = 2 * 60 - 1 + 8 = 127 rounded
+# up to 16 = 128; an x row of 2 * 128 - 1 + 8 = 263 samples staged in 264,
+# 66 16-byte words, made odd: 268; rings of 8 + 8 - 1 = 15 and 4 - 1 + 4 +
+# 4 = 11 rows; 2 * 15 * 128 + 4 * 128 + 2 * 11 * 60 = 5672 words of 4
+# bytes, three stages of 8 rows of 268, the 16 taps' table: 22688 + 25728
+# + 128 = 48544 bytes
+STRIP_FORMS = [
+    ("cdf97", "lifting", 16, (60, 128, 48544), (60, 128, 35872),
+     (28, 64, 49024)),
+    ("haar", "lifting", 8, (64, 128, 37280), (64, 128, 24608),
+     (32, 64, 37296)),
+    ("db4", "filter", 16, (56, 128, 56320), (56, 128, 42880),
+     (24, 64, 56128)),
+    ("sym5", "filter", 0, None, None, None),
+    ("coif4", "filter", 0, None, None, None),
+    ("db10", "filter", 0, None, None, None)]
+DTYPES = (torch.float32, torch.bfloat16, torch.float64)
+
+
+@pytest.mark.parametrize("dtype_i, dtype", list(enumerate(DTYPES)))
+@pytest.mark.parametrize("name, kind, window, f32, bf16, f64", STRIP_FORMS)
+def test_strip_window_and_shared_bytes(name, kind, window, f32, bf16, f64,
+                                       dtype_i, dtype):
+    """Kernel N's form for a wavelet: the strip form's window (8 or 16
+    offsets, above the analysis span; kernel A's for the same bands) or 0,
+    the first form, for a span of 16 or more, with stage_tile's tile and
+    shared bytes; the strip's level-2 columns, LL1 window and shared bytes
+    per dtype (well inside the card's 227 KB), and the rings as deep as
+    the taps of a step reach."""
+    _, wt = _carriers(name, kind)
+    dmin, span = _ana(wt)
+    x = torch.empty((1, 1024, 1024), dtype=dtype)
+    plan = stage2d.stage_plan(x, wt)
+    assert stage2d.stage_window(wt) == window == level2d.fw_window(wt)
+    assert (span < window) if window else span >= 16
+    if not window:
+        tile = stage2d.stage_tile(wt, dtype)
+        assert plan == (0, tile) + (0,) * 16 + (
+            stage2d.smem_bytes(wt, dtype, tile),)
+        return
+    q2, w1, smem = (f32, bf16, f64)[dtype_i]
+    assert (plan.q2, plan.w1, plan.smem) == (q2, w1, smem)
+    assert 4 * plan.smem <= level2d.SMEM_LIMIT      # four blocks an SM
+    v = 2 if dtype == torch.float64 else 4
+    assert plan.w1 % (4 * v) == 0 and plan.q2 % 4 == 0
+    assert 2 * plan.q2 - 1 + plan.hi - plan.lov <= plan.w1
+    # an LL1 window row of 512 bytes at most, and not with 4 more columns
+    acc = 16 // v
+    assert plan.w1 * acc <= 512 < (2 * plan.q2 + 7 + plan.hi - plan.lov) * acc
+    assert plan.r1 == 8 + span - 1 and plan.r2 == 3 + plan.hi - dmin
+    # the staged window holds every tap of the last LL1 column
+    assert plan.sh + 2 * (plan.w1 - 1) + span < plan.ps
+    assert stage2d.stage_plan(x, wt, strips=False).window == 0
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_strip_staging_path(dtype):
+    """The strip form stages by 16-byte words where x's base, strides and
+    n are whole words; by 4 bytes otherwise (a view one column in, a row
+    stride of an odd count, n = 4 in bfloat16)."""
+    _, wt = _carriers("cdf97", "lifting")
+    e = 16 // torch.empty((), dtype=dtype).element_size()
+    x = torch.zeros((2, 16, 8 * e), dtype=dtype)
+    assert stage2d.stage_plan(x, wt).staging == 16
+    assert stage2d.stage_plan(x[:, :, 4:4 + 4 * e] if e > 4 else
+                              x[:, :, 2:2 + 4 * e], wt).staging == (
+        16 if e == 2 else 4)
+    odd = torch.zeros((2, 16, 8 * e + 4), dtype=dtype)[:, :, :8 * e]
+    assert stage2d.stage_plan(odd, wt).staging == (16 if e <= 4 else 4)
+    assert stage2d.stage_plan(torch.zeros((1, 4, 4), dtype=dtype),
+                              wt).staging == (4 if e == 8 else 16)
+    # the stores: V-element words into planes whose bases and strides allow
+    y = torch.zeros((1, 16, 8 * e), dtype=dtype)
+    outs = (torch.zeros((1, 4, 2 * e), dtype=dtype),
+            *level2d.detail_planes(y, 1), *level2d.detail_planes(y, 2))
+    assert stage2d.stage_plan(x[:1], wt, outs).vmask == 0b1111111
+
+
+def _strip_items(plan, B, m4):
+    """The strip walk's work items as csrc/stage2d.cu (StripItem) decodes
+    them: (b, strip, r2s, r2e, r20, steps)."""
+    for t in range(plan.items):
+        b, rem = divmod(t, plan.segs * plan.strips)
+        sg, st = divmod(rem, plan.strips)
+        r2s = sg * plan.seg
+        r2e = min(r2s + plan.seg, m4)
+        yield (b, st, r2s, r2e, r2s - 2 * plan.warm,
+               plan.warm + -(-(r2e - r2s) // 2))
+
+
+def emulate_strips(x, wt):
+    """numpy emulation of kernel N's strip walk (csrc/stage2d.cu) in
+    float64, with the geometry of :func:`stage2d.stage_plan`: each work
+    item walks its segment step by step, staging its x rows (the wrap
+    applied while staging) into the step's buffer, the row passes into
+    rings at the kernel's slots, LL1 rows and level-2 rows from the
+    kernel's ring rows (a ring row the walk has not filled is NaN); every
+    output write is counted.  Returns the seven planes (NaN where
+    unwritten) and their write counts."""
+    plan = stage2d.stage_plan(x, wt)
+    assert plan.window
+    B, m, n = x.shape
+    m4, n4, RS, XR = m // 4, n // 4, 2, 8
+    dmin, span = _ana(wt)
+    ds, cs, dd, cd = level2d.level_bands(wt)
+    ks, kd = ds - dmin, dd - dmin
+    shapes = [(B, m4, n4)] + [(B, m // 2, n // 2)] * 3 + [(B, m4, n4)] * 3
+    outs = [np.full(s, np.nan) for s in shapes]
+    writes = [np.zeros(s, np.int32) for s in shapes]
+    X = x.double().numpy()
+    j, q = np.arange(plan.w1), np.arange(plan.q2)
+    for b, st, r2s, r2e, r20, steps in _strip_items(plan, B, m4):
+        c2 = st * plan.q2
+        cols = (4 * c2 + 2 * plan.lov + dmin - plan.sh + np.arange(plan.ps)) % n
+        c1 = 2 * c2 + plan.lov + j                      # LL1 columns
+        own_c = (j >= -plan.lov) & (j < 2 * plan.q2 - plan.lov) & (c1 < n // 2)
+        cc = c2 + q                                     # level-2 columns
+        S1, D1 = np.full((2, plan.r1, plan.w1), np.nan)
+        S2, D2 = np.full((2, plan.r2, plan.q2), np.nan)
+        h1 = h2 = 0
+        for s in range(steps):
+            rho = r20 + RS * s
+            xr0 = 4 * rho + 2 * plan.hi + dmin + span - 3
+            stg = X[b][(xr0 + np.arange(XR)) % m][:, cols]
+            idx = plan.sh + 2 * j[:, None]
+            assert (idx + span).max() < plan.ps         # inside the stage
+            slots = (h1 + np.arange(XR)) % plan.r1
+            S1[slots] = (stg[:, idx + ks] * cs).sum(-1)
+            D1[slots] = (stg[:, idx + kd] * cd).sum(-1)
+            L1 = np.empty((2 * RS, plan.w1))
+            for uu in range(2 * RS):
+                w = 2 * rho + plan.hi - 1 + uu
+                rs_, rd_ = ((h1 + 2 * uu + XR + k) % plan.r1 for k in (ks, kd))
+                L1[uu] = cs @ S1[rs_]
+                own = own_c & (2 * r2s <= w) & (w < 2 * r2e)
+                if not own.any():
+                    continue
+                for p, (kk, src) in enumerate(((cs, D1[rs_]), (cd, S1[rd_]),
+                                               (cd, D1[rd_])), 1):
+                    outs[p][b, w, c1[own]] = (kk @ src)[own]
+                    writes[p][b, w, c1[own]] += 1
+            idx = (dmin - plan.lov) + 2 * q[:, None]
+            assert (idx + span).max() < plan.w1         # inside LL1's row
+            slots = (h2 + np.arange(2 * RS)) % plan.r2
+            S2[slots] = (L1[:, idx + ks] * cs).sum(-1)
+            D2[slots] = (L1[:, idx + kd] * cd).sum(-1)
+            for v2 in range(RS):
+                r2 = rho + v2
+                if not r2s <= r2 < r2e:
+                    continue
+                ok = cc < n4
+                rs_, rd_ = ((h2 + 2 * v2 + 2 * RS + k) % plan.r2 for k in (ks, kd))
+                for p, (kk, src) in zip((0, 4, 5, 6), (
+                        (cs, S2[rs_]), (cs, D2[rs_]), (cd, S2[rd_]),
+                        (cd, D2[rd_]))):
+                    outs[p][b, r2, cc[ok]] = (kk @ src)[ok]
+                    writes[p][b, r2, cc[ok]] += 1
+            h1, h2 = (h1 + XR) % plan.r1, (h2 + 2 * RS) % plan.r2
+    return outs, writes
+
+
+def strip_writes(x, wt):
+    """The strip walk's writes, counted per item as the kernel's steps make
+    them, in factorised form for the largest shapes: an item writes the
+    same columns in every row it writes, so a plane's count is the count of
+    (image, row, strip) times the strip's column set.  Returns, for level 1
+    and level 2, the (B, rows, strips) counts and the (strips, cols) sets."""
+    plan = stage2d.stage_plan(x, wt)
+    B, m, n = x.shape
+    m4, n4 = m // 4, n // 4
+    j, q = np.arange(plan.w1), np.arange(plan.q2)
+    rows1 = np.zeros((B, m // 2, plan.strips), np.int32)
+    rows2 = np.zeros((B, m4, plan.strips), np.int32)
+    cols1 = np.zeros((plan.strips, n // 2), np.int32)
+    cols2 = np.zeros((plan.strips, n4), np.int32)
+    for st in range(plan.strips):
+        c1 = 2 * st * plan.q2 + plan.lov + j
+        own = (j >= -plan.lov) & (j < 2 * plan.q2 - plan.lov) & (c1 < n // 2)
+        cols1[st, c1[own]] += 1
+        cc = st * plan.q2 + q
+        cols2[st, cc[cc < n4]] += 1
+    for b, st, r2s, r2e, r20, steps in _strip_items(plan, B, m4):
+        rho = r20 + 2 * np.arange(steps)
+        w = (2 * rho[:, None] + plan.hi - 1 + np.arange(4)).ravel()
+        np.add.at(rows1, (b, w[(2 * r2s <= w) & (w < 2 * r2e)], st), 1)
+        r2 = (rho[:, None] + np.arange(2)).ravel()
+        np.add.at(rows2, (b, r2[(r2s <= r2) & (r2 < r2e)], st), 1)
+    return (rows1, cols1), (rows2, cols2)
+
+
+@pytest.mark.parametrize("name, kind", [("cdf97", "lifting"),
+                                        ("haar", "lifting"),
+                                        ("db4", "filter")])
+@pytest.mark.parametrize("shape", [(1, 96, 160), (2, 36, 20), (1, 4, 4),
+                                   (1, 8, 1544)])
+def test_strip_walk_equals_plain(shape, name, kind):
+    """Kernel N's strip walk, emulated in float64: every output written
+    exactly once, from the staged rows and the rings only, equal to the
+    plain version: one image, a batch of ragged images, 4 x 4 (every tap
+    wraps) and a wide strip row."""
+    _, wt = _carriers(name, kind)
+    x = torch.from_numpy(np.random.default_rng(98).standard_normal(shape))
+    outs, writes = emulate_strips(x, wt)
+    for got, want, count in zip(outs, stage2d.stage2_fw_plain(x, wt),
+                                writes):
+        assert (count == 1).all()
+        assert np.abs(got - want.numpy()).max() <= 1e-12 * max(
+            1.0, np.abs(want.numpy()).max())
+
+
+@pytest.mark.parametrize("name, kind", [("cdf97", "lifting"),
+                                        ("db4", "filter")])
+@pytest.mark.parametrize("shape", [(1, 16384, 16384), (1, 1000, 1544),
+                                   (1, 96, 160), (1, 4, 4)])
+def test_strip_walk_writes_each_output_once(shape, name, kind):
+    """The strip walk's writes at the main path's 16384^2, the ragged 1000
+    x 1544 of chip_smoke's phase 2f, 96 x 160 and 4 x 4: the strips' own
+    columns cover each column once, and each (row, strip) is written once,
+    so each element of the seven planes is written exactly once; and the
+    grid covers the card's 132 SMs wherever the image has that many
+    level-2 row pairs of strips."""
+    _, wt = _carriers(name, kind)
+    x = torch.empty(shape, dtype=torch.float32)
+    for rows, cols in strip_writes(x, wt):
+        assert (cols.sum(0) == 1).all() and (rows == 1).all()
+    plan = stage2d.stage_plan(x, wt)
+    assert plan.items >= min(132, shape[1] // 8 * plan.strips)
+
+
+def test_stage_gate_keeps_its_answers():
+    """stage_ok's answers on a grid of shapes, wavelets and dtypes: the
+    strip form changes no route (the gate still asks stage_tile, the first
+    form's tile, and kernel_levels)."""
+    f32, f64, bf16 = torch.float32, torch.float64, torch.bfloat16
+    cdf, db4 = (_carriers(*c)[1] for c in WAVELETS)
+    batt = T.wavelet(T.wt.batt4)
+    got = {(B, m, n, L, w.name, str(dt)[6:]): pyramid2d.stage_ok(
+        B, m, n, L, w, dt)
+        for B in (1, 2) for m, n in ((256, 512), (512, 512), (1000, 1544),
+                                     (16384, 16384), (128, 256), (96, 160))
+        for L in (1, 2, 3) for w in (cdf, db4, batt)
+        for dt in (f32, f64, bf16)}
+    yes = {k for k, v in got.items() if v}
+    assert all(k[0] == 1 and k[3] >= 2 and k[4] != batt.name for k in yes)
+    assert (1, 16384, 16384, 2, cdf.name, "float32") in yes
+    assert (1, 1000, 1544, 3, db4.name, "bfloat16") in yes
+    assert (1, 256, 512, 2, cdf.name, "float64") in yes
+    assert not any(k[1:3] in ((128, 256), (96, 160)) for k in yes)
+    assert len(yes) == 48

@@ -129,3 +129,182 @@ def test_bf16_tail_rounds_once():
     got = tail1d.tail1d_fw(x, wt, 6)
     assert torch.equal(got, tail1d.tail1d_fw(x.float(), wt, 6).to(
         torch.bfloat16))
+
+
+# --- kernel H's staged form: window, shared bytes, staging path, walk ------
+
+def _syn(wt):
+    """The synthesis bands (S0, D0, S1, D1) and their span."""
+    bands = tail1d.synthesis_bands(wt)
+    offs = np.concatenate([d for d, _ in bands])
+    return bands, int(offs.max() - offs.min())
+
+
+# the staged form's window: the widest source's taps (cdf97: S offsets -1
+# .. 2, D offsets -2 .. 2, 5 wide: 8; db4: S -3 .. 0 and D 0 .. 3: 4; sym5
+# 5 wide, coif4 6: 8), 0 where the span is 16 or more (db10: 18)
+INV_FORMS = [("cdf97", "lifting", 8), ("haar", "lifting", 4),
+             ("db4", "filter", 4), ("sym5", "filter", 8),
+             ("coif4", "filter", 8), ("db10", "filter", 0)]
+DTYPES = (torch.float32, torch.bfloat16, torch.float64)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("name, kind, window", INV_FORMS)
+def test_inverse_window_and_shared_bytes(name, kind, window, dtype):
+    """Kernel H's form for a wavelet and one block's shared bytes, worked
+    out from the bands: (4096, 1024) rows in the staged form, 512 items of
+    V pairs (V = 4, 2 in float64) per block, so 4 rows (2 in float64), and
+    (4096, 4096) rows one to a block, each staged whole in the storage
+    type beside its two scaling buffers (half and a quarter of a row) in
+    the arithmetic type, and the band table; the first form's two rows of
+    the arithmetic type for db10; each within the card's 227 KB."""
+    _, wt = _carriers(name, kind)
+    (s0, _), (d0, _), (s1, _), (d1, _) = tail1d.synthesis_bands(wt)
+    _, span = _syn(wt)
+    ext = max(max(s0.max(), s1.max()) - min(s0.min(), s1.min()),
+              max(d0.max(), d1.max()) - min(d0.min(), d1.min())) + 1
+    assert tail1d.inv_window(wt) == window
+    assert (span < 16 and ext <= window) if window else span >= 16
+    assert window in (0, 4, 8) and (window != 8 or ext > 4)
+    size = torch.empty((), dtype=dtype).element_size()
+    acc = 8 if dtype == torch.float64 else 4
+    table = tail1d.tap_count(wt, True) * (acc + 4)
+    for n, rows in ((1024, 2 if acc == 8 else 4), (4096, 1)):
+        plan = tail1d.inv_plan(torch.empty((4096, n), dtype=dtype), wt, 8)
+        if window:
+            pa = n // 2 + n // 4
+            assert plan == (window, 16, rows, 256, 4096 // rows, n, pa,
+                            rows * (n * size + pa * acc) + table)
+        else:
+            assert plan == (0, 0, 1, 256, 4096, n, n, 2 * n * acc + table)
+        assert plan.smem <= 232448
+    first = tail1d.inv_plan(torch.empty((4096, 1024), dtype=dtype), wt, 8,
+                            staged=False)
+    assert first.window == 0 and first.smem == 2 * 1024 * acc + table
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_inverse_staging_path(dtype):
+    """The staged H stages by 16-byte words where y's base, row stride and
+    n are whole words; by 4 bytes otherwise (a view one element in, a row
+    stride of an odd count, rows of 2 samples); short rows several to a
+    block, with no more threads than their first level's items ask."""
+    _, wt = _carriers("db4", "filter")
+    e = 16 // torch.empty((), dtype=dtype).element_size()
+    y = torch.zeros((5, 8 * e + 1), dtype=dtype)
+    plan = tail1d.inv_plan(y[:, :8 * e], wt, 2)
+    assert plan.staging == 4 and plan.rows == 5
+    assert tail1d.inv_plan(y[1:, 1:1 + 4 * e], wt, 2).staging == 4
+    assert tail1d.inv_plan(torch.zeros((5, 8 * e), dtype=dtype), wt,
+                           2).staging == 16
+    short = tail1d.inv_plan(torch.zeros((700, 2), dtype=dtype), wt, 1)
+    assert short.staging == (16 if e == 2 else 4)
+    assert (short.rows, short.threads, short.blocks) == (512, 256, 2)
+    # (3, 96): 3 rows of 12 items of 4 pairs (24 of 2 in float64), two a
+    # thread
+    assert tail1d.inv_plan(torch.zeros((3, 96), dtype=dtype), wt,
+                           5).threads == (64 if e == 2 else 32)
+
+
+def emulate_inv(y, wt, L, values=True):
+    """numpy emulation of kernel H's staged walk (csrc/tail1d.cu) in
+    float64, with the geometry of :func:`tail1d.inv_plan`: each block
+    stages its rows whole, and each level reads its s band from the stage
+    (the first level) or the buffer the level before wrote (X after an
+    even level, Y after an odd one) and its d band from the stage, V pairs
+    per item, the windows wrapped on the level's length, and
+    writes to the other buffer (the last level to the output); a level's
+    outputs must fit their buffer.  Every output write is counted (only
+    that where ``values`` is false, for the largest shapes).  Returns the
+    output and the count of writes of each element."""
+    plan = tail1d.inv_plan(y, wt, L)
+    assert plan.window
+    B, n = y.shape
+    v = 2 if y.dtype == torch.float64 else 4
+    (s0, c0), (d0, e0), (s1, c1), (d1, e1) = tail1d.synthesis_bands(wt)
+    stage = np.full((plan.blocks * plan.rows, plan.ps), np.nan)
+    stage[:B, :n] = y.double().numpy()
+    xa = -(-(n // 2) // v) * v
+    buf = {0: np.full((plan.blocks * plan.rows, xa), np.nan),        # X
+           1: np.full((plan.blocks * plan.rows, plan.pa - xa), np.nan)}
+    out = np.full((B, n), np.nan)
+    writes = np.zeros((B, n), np.int64)
+    for l in range(L, 0, -1):
+        nh = n >> l
+        per = -(-nh // v)                       # items of V pairs a row
+        u = np.arange(plan.rows * per)
+        assert len(u) <= 2 * plan.threads or plan.rows == 1
+        r = np.repeat(u // per, v)
+        k = (u % per * v)[:, None] + np.arange(v)
+        keep = k.ravel() < nh
+        r, k = r[keep], k.ravel()[keep]
+        assert l == 1 or 2 * nh <= buf[l & 1].shape[1]
+        # the same items in every block: global row b * rows + r
+        rows = (np.arange(plan.blocks)[:, None] * plan.rows + r).ravel()
+        pairs = np.tile(k, plan.blocks)
+        ok = rows < B
+        rows, pairs = rows[ok], pairs[ok]
+        s = stage if l == L else buf[(l + 1) & 1]
+        new = {0: np.nan, 1: np.nan}
+        for p, (ds, cs_, dd, cd) in enumerate(((s0, c0, d0, e0),
+                                               (s1, c1, d1, e1))
+                                              if values else ()):
+            new[p] = ((s[rows[:, None], (pairs[:, None] + ds) % nh] * cs_)
+                      .sum(-1) + (stage[rows[:, None], nh + (pairs[:, None]
+                                                              + dd) % nh]
+                                  * cd).sum(-1))
+        for p in (0, 1):
+            if l > 1:
+                buf[l & 1][rows, 2 * pairs + p] = new[p]
+            else:
+                out[rows, 2 * pairs + p] = new[p]
+                np.add.at(writes, (rows, 2 * pairs + p), 1)
+    return out, writes
+
+
+@pytest.mark.parametrize("name, kind", [("cdf97", "lifting"),
+                                        ("db4", "filter")])
+@pytest.mark.parametrize("B, n, L", [(3, 96, 5), (5, 8, 3), (7, 64, 6),
+                                     (700, 2, 1), (2, 4096, 12)])
+def test_inverse_walk_equals_plain(B, n, L, name, kind):
+    """Kernel H's staged walk, emulated in float64: every output written
+    exactly once, equal to the plain version: short rows several to a
+    block, rows of 2 (a window past
+    both ends of every level) and two rows of 4096 through 12 levels (one
+    to a block, several items a thread)."""
+    _, wt = _carriers(name, kind)
+    y = torch.from_numpy(np.random.default_rng(47).standard_normal((B, n)))
+    got, writes = emulate_inv(y, wt, L)
+    want = tail1d.tail1d_inv_plain(y, wt, L).numpy()
+    assert (writes == 1).all()
+    assert np.abs(got - want).max() <= 1e-12 * max(1.0, np.abs(want).max())
+
+
+@pytest.mark.parametrize("B, n, L", [(4096, 4096, 8), (3, 96, 5),
+                                     (1, 1 << 14, 14), (5, 8, 3)])
+def test_inverse_walk_writes_each_output_once(B, n, L):
+    """The staged walk's writes at the batched path's (4096, 4096), at (3,
+    96), one row of 2^14 (the 2^20 db2 L20 inverse's tail; its threads take
+    several items a level) and (5, 8): each output element exactly
+    once."""
+    _, wt = _carriers("db4", "filter")
+    y = torch.zeros((B, n), dtype=torch.float32)
+    assert tail1d.inv_plan(y, wt, L).window == 4
+    assert (emulate_inv(y, wt, L, values=False)[1] == 1).all()
+
+
+def test_tail1d_fits_keeps_its_answers():
+    """tail1d_fits on a grid of lengths, wavelets, dtypes and directions:
+    the staged form changes no route (2^14 samples in float32 and
+    bfloat16, 2^13 in float64, for every wavelet here)."""
+    from wavelets_tpu_torch import wavelet, wt as W
+    wts = [wavelet(W.cdf97, "lifting"), wavelet(W.db4, "filter"),
+           wavelet(W.haar, "lifting"), wavelet(W.db10, "filter")]
+    for dtype, top in ((torch.float32, 14), (torch.bfloat16, 14),
+                       (torch.float64, 13)):
+        for k in range(1, 17):
+            for wt in wts:
+                for inverse in (False, True):
+                    assert tail1d.tail1d_fits(1 << k, wt, dtype,
+                                              inverse) == (k <= top)

@@ -92,6 +92,13 @@ __device__ __forceinline__ void cp_async_wait1() {  // all but the newest group
 #endif
 }
 
+template <int N>  // all but the N newest groups
+__device__ __forceinline__ void cp_async_wait() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+#endif
+}
+
 // 16 bytes of the arithmetic type (4 float, 2 double), and the unsigned
 // word of BYTES bytes (a 16-, 8-, 4- or 2-byte load or store).
 template <typename A> struct Vec16 { using type = float4; static constexpr int n = 4; };

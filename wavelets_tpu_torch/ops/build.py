@@ -55,9 +55,9 @@ _SIGNATURES = {
     "wtt_level_inv": [_I, _I, _I, _I, _P, _P, _P, _P, _L, _L, _P, _P, _P, _I,
                       _I, _P],
     # dtype, B, m, n, x, xsb, xsr, planes, sb[], sr[], offs, coefs, ns, nd,
-    # dmin, span, tile, stream
+    # dmin, span, tile, strips, stream
     "wtt_stage2_fw": [_I, _I, _I, _I, _P, _L, _L, _P, _P, _P, _P, _P, _I, _I,
-                      _I, _I, _I, _P],
+                      _I, _I, _I, _I, _P],
     # dtype, B, m, n, L, x, xsb, xsr, y, ysb, ysr, offs, coefs, ns, nd,
     # plan[7], smem, stream
     "wtt_tail_fw": [_I, _I, _I, _I, _I, _P, _L, _L, _P, _L, _L, _P, _P, _I,
@@ -78,9 +78,9 @@ _SIGNATURES = {
     "wtt_tail1d_fw": [_I, _I, _I, _I, _P, _L, _P, _L, _P, _P, _I, _I, _I, _I,
                       _P],
     # dtype, B, n, L, y, ys, out, os, offs, coefs, counts[], smin, span,
-    # stream
+    # window, stream
     "wtt_tail1d_inv": [_I, _I, _I, _I, _P, _L, _P, _L, _P, _P, _P, _I, _I,
-                       _P],
+                       _I, _P],
     # dtype, B, R, C, x, xsb, xsr, a, asb, asr, d, dsb, dsr, offs, coefs,
     # ns, nd, dmin, span, stream
     "wtt_axis0_fw": [_I, _I, _I, _I, _P, _L, _L, _P, _L, _L, _P, _L, _L, _P,

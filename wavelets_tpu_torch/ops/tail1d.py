@@ -7,7 +7,12 @@ the final scaling band at ``[:n>>L]``) to ``out (B, n)``; ``tail1d_inv``
 is its inverse.  One CUDA block per row holds the row, plus one scratch
 row, in shared memory in the arithmetic type, so the size limit is the
 card's (:func:`tail1d_fits`).  They replace the TPU pyramid kernels of
-``wavelets_tpu/ops/pallas/pyramid1d.py`` (see csrc/tail1d.cu).
+``wavelets_tpu/ops/pallas/pyramid1d.py`` (see csrc/tail1d.cu).  Where the
+synthesis bands' span is below 16 (:func:`inv_window`), the inverse runs
+its staged form: each block stages its packed rows once with 16-byte
+copies, short rows several to a block, and every level reads shared
+memory only, V output pairs per thread from windows in registers, into
+one of two scaling buffers; :func:`inv_plan` mirrors its geometry.
 
 A tensor on the CPU takes the plain PyTorch version (``tail1d_fw_plain``,
 ``tail1d_inv_plain``); a CUDA tensor launches the kernel or raises.  Both
@@ -19,19 +24,28 @@ be the same memory: each block reads its row before it writes.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from . import build
-from .bands import acc_dtype, band_table, tap_count
+from .bands import acc_dtype, band_table, synthesis_bands, tap_count
 from .level2d import SMEM_LIMIT, _analysis, _synthesis
 from .level1d import check_rows
 
 __all__ = ["LAUNCHES", "PLAIN_CALLS", "tail1d_fits", "tail1d_fw",
-           "tail1d_fw_plain", "tail1d_inv", "tail1d_inv_plain"]
+           "tail1d_fw_plain", "tail1d_inv", "tail1d_inv_plain", "inv_window",
+           "inv_plan"]
 
 LAUNCHES = {"tail1d_fw": 0, "tail1d_inv": 0}
 PLAIN_CALLS = {"tail1d_fw": 0, "tail1d_inv": 0}
+
+# kernel H's staged form (csrc/tail1d.cu): its window bounds, threads per
+# block at most, items per thread at the first level that set the rows a
+# block holds; the first form's threads at most
+INV_WINDOWS = (4, 8)
+_HS_THREADS, _HS_IPT = 256, 2
+_H_THREADS = 256
 
 
 def tail1d_fits(n: int, wt, dtype, inverse: bool = False) -> bool:
@@ -40,6 +54,67 @@ def tail1d_fits(n: int, wt, dtype, inverse: bool = False) -> bool:
     float64.)  The same limit holds on the CPU, so both route alike."""
     size = acc_dtype(dtype).itemsize
     return 2 * n * size + tap_count(wt, inverse) * (size + 4) <= SMEM_LIMIT
+
+
+def inv_window(wt) -> int:
+    """The window of kernel H's staged form for ``wt``'s synthesis bands:
+    the smallest of INV_WINDOWS that holds each source's taps (the S
+    bands' offsets of both parities, and the D bands'), or 0, the first
+    form, where none does or the bands' span is 16 or more.  The wrapper
+    passes it to csrc/tail1d.cu, whose kernel checks that the bands fit
+    it."""
+    (s0, _), (d0, _), (s1, _), (d1, _) = synthesis_bands(wt)
+    offs = [int(o) for o in (*s0, *d0, *s1, *d1)]
+    if max(offs) - min(offs) >= 16:
+        return 0
+    ext = max(int(max(a.max(), b.max()) - min(a.min(), b.min())) + 1
+              for a, b in ((s0, s1), (d0, d1)))
+    return next((w for w in INV_WINDOWS if ext <= w), 0)
+
+
+class InvPlan(NamedTuple):
+    """Kernel H's launch as csrc/tail1d.cu plans it: the window (0: the
+    first form, one row per block), the staging path (16 or 4 bytes; 0 for
+    the first form), rows per block, threads per block, blocks, staged
+    elements per row, scaling-buffer elements per row (X and Y; the first
+    form's scratch row), shared bytes."""
+    window: int
+    staging: int
+    rows: int
+    threads: int
+    blocks: int
+    ps: int
+    pa: int
+    smem: int
+
+
+def inv_plan(y, wt, L: int, staged: bool = True) -> InvPlan:
+    """How kernel H runs the L levels of the packed rows ``y (B, n)``: a
+    pure function of their shape, row stride and data pointer, mirroring
+    csrc/tail1d.cu.  ``staged=False`` asks for the first form, as a window
+    of 0 does at the C entry.  The staged form holds as many rows as keep
+    its first level within two items (V pairs each) per thread of 256
+    threads (one row where a row has more), each staged whole, with its
+    two scaling buffers of half and a quarter of a row in the arithmetic
+    type.  Its 16-byte staging path needs y's base, row stride and n in
+    whole 16-byte words."""
+    B, n = y.shape
+    size, acc = y.element_size(), acc_dtype(y.dtype).itemsize
+    table = tap_count(wt, True) * (acc + 4)
+    window = inv_window(wt) if staged else 0
+    if not window:
+        threads = min(max(-(-(n // 2) // 32) * 32, 32), _H_THREADS)
+        return InvPlan(0, 0, 1, threads, B, n, n, 2 * n * acc + table)
+    e, v = 16 // size, 16 // acc
+    per = -(-(n // 2) // v)
+    cap = _HS_IPT * _HS_THREADS
+    rows = max(1, min(B, cap // per))
+    threads = min(-(-(rows * per) // (_HS_IPT * 32)) * 32, _HS_THREADS)
+    ps = -(-n // e) * e
+    pa = -(-(n // 2) // v) * v + -(-(n // 4) // v) * v
+    vec = n % e == 0 and y.data_ptr() % 16 == 0 and y.stride(0) % e == 0
+    return InvPlan(window, 16 if vec else 4, rows, threads, -(-B // rows),
+                   ps, pa, rows * (ps * size + pa * acc) + table)
 
 
 def _check(x, L, out, name):
@@ -98,14 +173,15 @@ def _launch_fw(x, wt, L, out, stream):
         stream), "tail1d_fw")
 
 
-def _launch_inv(y, wt, L, out, stream):
+def _launch_inv(y, wt, L, out, stream, staged=True):
     B, n = y.shape
     table = band_table(wt, True, y.dtype, y.device)
     build.check(build.library().wtt_tail1d_inv(
         build.dtype_code(y.dtype), B, n, L, y.data_ptr(), y.stride(0),
         out.data_ptr(), out.stride(0), table.offs.data_ptr(),
         table.coefs.data_ptr(), (ctypes.c_int * 4)(*table.counts),
-        table.dmin, table.span, stream), "tail1d_inv")
+        table.dmin, table.span, inv_window(wt) if staged else 0, stream),
+        "tail1d_inv")
 
 
 def tail1d_fw(x, wt, L: int, out=None):
@@ -125,7 +201,9 @@ def tail1d_fw(x, wt, L: int, out=None):
 
 def tail1d_inv(y, wt, L: int, out=None):
     """Inverse of :func:`tail1d_fw`: packed ``y (B, n)`` -> ``out (B, n)``
-    (allocated when None), in one launch.  Returns ``out``."""
+    (allocated when None), in one launch: the staged form where
+    :func:`inv_window` gives a window, else the first form.  Returns
+    ``out``."""
     out = _check(y, L, out, "tail1d_inv")
     _check_fits(y, wt, True, "tail1d_inv")
     if y.device.type == "cpu":
