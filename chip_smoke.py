@@ -31,11 +31,13 @@ exits non-zero:
                   and one 2^20 row; E's forms (windows of 16 and 8, the
                   first form: cdf97, db4, haar, sym5, db10) on the same
                   rows and both paths, the 4-byte path writing into the
-                  halves of odd-width rows; H's forms (windows of 8 and 16,
-                  the first form: cdf97, db4, sym5, db10) on both staging
-                  paths, 700 rows of 2 to one row of 2^14 through 14
-                  levels, bit for bit against the first form and in
-                  place.
+                  halves of odd-width rows; H's forms (windows of 8 and 4,
+                  the first form: cdf97, db4, sym5, db10) and G's (windows
+                  of 8 and 4 output pairs, the first form: the same
+                  wavelets) on both staging paths, 700 rows of 2 to one
+                  row of 2^14 through 14 levels (2^13 in f64), over
+                  NaN-filled outputs, bit for bit against the first form
+                  (staging off) and in place.
   2c. kernels3d -- the axis-0 kernels (forward I, inverse J, and J reading
                   a separate corner) the same way, on (B, R, C) views with
                   gaps between rows and batch items, R = 2, narrow C and
@@ -55,6 +57,12 @@ exits non-zero:
                   times N, L from 1 to the most the plan fits, B = 1, 3,
                   64 and 512, every cluster size the plan picks (1-16),
                   a strided input; rows beyond the plan must be refused.
+                  The all-levels inverse (modwt_inv_levels) the same way:
+                  against its plain version and, bit for bit, against
+                  chains of M launches in f32, f64 and bf16, on the same
+                  rows (every cluster size 1-16, reaches of several times
+                  N, a batch-strided input for db4); rows beyond its plan
+                  must be refused.
   2e. kernelshalo -- kernels I and J in halo mode: with halos equal to the
                   wrapped rows they must equal the periodic kernels bit for
                   bit; with random halos (taller than the reach, strided;
@@ -69,7 +77,11 @@ exits non-zero:
                   4-byte staging path) and contiguous (the 16-byte path),
                   LL2 into a scratch or into the packed corner, three
                   dtypes; whether it equals two launches of A bit for bit,
-                  and the strip form its first form.
+                  and the strip form its first form.  Then fresh bf16
+                  draws from a seed of their own (4 x 4 eight times per
+                  wavelet, and each shape once): N against its plain
+                  version, which sums as A does, and bit for bit against
+                  two A launches.
   3. main      -- dwt/idwt of the 16384^2 float32 image, cdf97 lifting, 8
                   levels, through the public entry points; the launch counts
                   show the route, the round trip is checked, and smaller
@@ -84,7 +96,7 @@ exits non-zero:
                   trip, the plain float64 version, and a float64 round trip
                   at 128^3.
   3d. mainmodwt -- modwt/imodwt of (512, 8192) float32 rows, db4, 6 levels
-                  (one modwt_fw_levels launch, one M per level), checked
+                  (one modwt_fw_levels and one modwt_inv_levels launch), checked
                   the same way; and of (8, 2^20) rows, too long for the
                   plan (one K and one M per level).
   3e. mainsharded -- parallel.dwt2/idwt2 of the 16384^2 float32 image,
@@ -114,9 +126,11 @@ exits non-zero:
                   one), with the host's time to enqueue each call, and the
                   1-D kernels.
   4c. times3d, timesmodwt -- the same for the 3-D and MODWT paths (f32 and
-                  bf16), and kernels I, J, K, M and modwt_fw_levels (beside
+                  bf16), and kernels I, J, K, M, modwt_fw_levels (beside
                   its plain version, the chain of K launches it replaces,
-                  and L dilated conv1d calls plus a torch.stack); for K
+                  and L dilated conv1d calls plus a torch.stack) and
+                  modwt_inv_levels (beside its plain version, the chain of
+                  M launches it replaces and L dilated conv1d calls); for K
                   also the contiguous store and the permuted copy that the
                   column store replaces.
   4d. timessharded -- the sharded forward and inverse on 4 shards and on 1,
@@ -157,10 +171,14 @@ exits non-zero:
                   16384^2 levels 1-2 in both forms beside the two A
                   launches it replaces (and in bf16, and for db4), kernel
                   H at (4096, 4096) db4 L8 in both forms beside a chain of
-                  eight polyphase conv1d calls, and H's forms by size.
-  5d. forms    -- which form of E, J, J in halo mode, N and H each
+                  eight polyphase conv1d calls, and H's forms by size;
+                  kernel G the same way beside a chain of eight strided
+                  conv1d calls, and G's forms by size; modwt_inv_levels at
+                  (512, 8192) db4 L6 (f32 and bf16) beside the six M
+                  launches it replaces and six dilated conv1d calls.
+  5d. forms    -- which form of E, J, J in halo mode, N, G and H each
                   wavelet launches, read from the card by the profiler:
-                  the tiled (N: strip, H: staged) form below a span of 16
+                  the tiled (N: strip, G and H: staged) form below a span of 16
                   (E: also from FW1D_MIN_PAIRS output pairs a level), the
                   first form otherwise.  It runs
                   after the traces: with these short profiler sessions in
@@ -228,6 +246,9 @@ INV_A0_WAVELETS = (("cdf97", "lifting"), ("db4", "filter"),
 TAIL_INV_WAVELETS = INV1D_WAVELETS
 TAIL_INV_ROWS = ((700, 2, 1), (5, 8, 3), (3, 96, 5), (4096, 4096, 8),
                  (3, 1 << 11, 11), (1, 1 << 14, 14))
+# kernel G's forms: windows of 8 (cdf97) and 4 output pairs (db4), the
+# first form (sym5, db10: a span of 16 or more), on H's rows
+TAIL_FW_WAVELETS = INV1D_WAVELETS
 SIZE, LEVELS = 16384, 8
 # the 1-D main paths: name, shape, wavelet, levels, packet transform?
 PATHS1D = (("batched_4096x4096_db4_L8", (4096, 4096), ("db4", "filter"), 8,
@@ -284,6 +305,8 @@ DENOISE_LEVELS, NSPIN = 6, (4, 4)
 # (B, m, n) shapes, the ragged one read through a strided view
 WAVELETS_STAGE = WAVELETS + (("coif4", "filter"),)
 SHAPES_STAGE = ((1, 1024, 1024), (1, 1000, 1544), (2, 96, 160), (1, 4, 4))
+# phase 2f's fresh bf16 draws: their seed, and the 4 x 4 draws per wavelet
+STAGE_FRESH_SEED, STAGE_FRESH_4x4 = 61, 8
 # the JAX package's 2-D switches (WAVELETS_TPU_<name>), and its switch
 # table: a name, the switches, the port's (forward, inverse) routes
 SWITCHES = ("MXU2D", "MXU_LS2", "FUSED2D", "FUSED_INV", "PACKED2D",
@@ -356,17 +379,25 @@ def kernel_names(fn):
     """The names of the device kernels that ``fn()`` launches, read from
     the card: a torch.profiler trace of three calls after one unprofiled
     call (the union of their names: the profiler can drop a trace's first
-    launch).  It tells which form of a kernel a wrapper chose."""
+    launch).  It tells which form of a kernel a wrapper chose.  A trace
+    that comes back without device events is taken again, with twice the
+    calls, up to three times in all, as in device_us: one of two full
+    runs lost every event of one of phase 5d's 43 short sessions."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-    names = {kernel_name(e) for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA}
+    calls = 3
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = {kernel_name(e) for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA}
+        if names:
+            break
+        calls *= 2
     require(names, "the profiler recorded the call's kernels")
     return names
 
@@ -686,6 +717,47 @@ def library_modwt_levels(x, wt, L):
     return call
 
 
+def library_modwt_inv_levels(xw, wt):
+    """L dilated conv1d calls, one per level, deepest first (each on the
+    plain version's scaling band of the level before and the column w_j,
+    wrapped and stacked beforehand): the last call's output ``(B, 1, N)``
+    is the reconstruction."""
+    g, h = modwt_ops.modwt_filter_pair(wt)
+    L = xw.shape[2] - 1
+    v, calls = xw[..., L], []
+    for j in range(L, 0, -1):
+        calls.append(library_modwt_inv(v, xw[..., j - 1], wt, j))
+        v = modwt_ops.imodwt_step(v, xw[..., j - 1], j, h, g)
+
+    def call():
+        for c in calls:
+            out = c()
+        return out
+
+    return call
+
+
+def library_tail1d_fw(x, wt, L):
+    """L strided conv1d calls, one per level (each on the plain version's
+    scaling band of the level before, wrapped beforehand), and a function
+    that packs their outputs as kernel G does."""
+    v, calls = x, []
+    for _ in range(L):
+        calls.append(library_fw1d(v, wt))
+        v = level1d.level1d_fw_plain(v, wt)[0]
+
+    def pack(outs):
+        y = torch.empty_like(x)
+        nh = x.shape[1]
+        for o in outs:
+            nh //= 2
+            y[:, nh: 2 * nh] = o[:, 1]
+        y[:, :nh] = outs[-1][:, 0]
+        return y
+
+    return (lambda: [c() for c in calls]), pack
+
+
 # --- phases ------------------------------------------------------------------
 
 def phase_device():
@@ -916,6 +988,7 @@ def phase_kernels1d(dev):
     cases += check_inv1d(dev, rng, worst)
     cases += check_fw1d(dev, rng, worst)
     cases += check_tail_inv(dev, rng, worst)
+    cases += check_tail_fw(dev, rng, worst)
     emit({"phase": "kernels1d", "cases": cases,
           "rows": [list(r) for r in rows],
           "tolerance": {str(k)[6:]: v for k, v in TOL.items()},
@@ -1058,6 +1131,59 @@ def check_tail_inv(dev, rng, worst):
     return cases
 
 
+def check_tail_fw(dev, rng, worst):
+    """Kernel G's forms: the staged form through the wrapper (windows of 8
+    output pairs: cdf97; of 4: db4) against its plain version and bit for
+    bit against the first form (launched with staging off), over
+    NaN-filled outputs and in place (out = x); sym5 and db10 take the
+    first form.  On the 16-byte staging path (contiguous rows) and the
+    4-byte path (rows one element in, an odd row stride; their outputs
+    take element stores where the row stride is no whole word); H's rows
+    (TAIL_INV_ROWS: 700 rows of 2 to one row of 2^14, 2^13 in f64)."""
+    cases = 0
+    nan = float("nan")
+    stream = torch.cuda.current_stream().cuda_stream
+    for (wname, kind) in TAIL_FW_WAVELETS:
+        wt = wavelet(wname, kind)
+        staged = bool(tail1d.fw_window(wt))
+        for dt, tol in TOL.items():
+            for B, n, L in TAIL_INV_ROWS:
+                if not tail1d.tail1d_fits(n, wt, dt):
+                    n, L = n // 2, L - 1
+                errs = {}
+                for path in ("16", "4"):
+                    x = torch.from_numpy(rng.standard_normal(
+                        (B, n + 3) if path == "4" else (B, n))).to(dev).to(dt)
+                    x = x[:, 1:n + 1] if path == "4" else x
+                    plan = tail1d.fw_plan(x, wt, L)
+                    want = 16 if path == "16" and n * x.element_size() % 16 \
+                        == 0 else 4
+                    require(plan.staging == (want if staged else 0),
+                            f"G {wname} {(B, n)} {dt} stages by {want} bytes: "
+                            f"{plan}")
+                    ref = tail1d.tail1d_fw_plain(x, wt, L)
+                    # the 4-byte path writes into rows of an odd stride
+                    wide = torch.full((B, n + (path == "4")), nan, dtype=dt,
+                                      device=dev)
+                    got = wide[:, :n]
+                    launched("tail1d_fw",
+                             lambda: tail1d.tail1d_fw(x, wt, L, out=got))
+                    errs[f"tail1d_fw_{path}byte"] = rel_err(got, ref)
+                    first = torch.full((B, n), nan, dtype=dt, device=dev)
+                    tail1d._launch_fw(x, wt, L, first, stream, staged=False)
+                    xx = x.clone()
+                    tail1d.tail1d_fw(xx, wt, L, out=xx)
+                    torch.cuda.synchronize()
+                    require(torch.equal(got, first) and torch.equal(xx, got),
+                            f"G {wname} {(B, n)} L{L} {dt} {path}-byte: "
+                            "bit-equal to its first form and in place")
+                    require(bool(torch.isnan(wide[:, n:]).all()),
+                            f"G {wname} {(B, n)} {dt} writes its rows only")
+                check_all("kernels1d", errs, (wname, B, n, L), dt, tol, worst)
+                cases += 1
+    return cases
+
+
 def check_inv_a0(dev, rng, worst):
     """Kernel J's forms against its plain version: the window of 8 (cdf97,
     db4) and of 16 offsets (coif4) and the first form (db10), on the
@@ -1170,12 +1296,17 @@ def phase_kernelsmodwt(dev):
                           worst)
                 cases += 1
     chain, plans = check_modwt_levels(dev, rng, worst)
+    ichain, iplans = check_modwt_inv_levels(dev, rng, worst)
     emit({"phase": "kernelsmodwt", "cases": cases,
           "rows": [list(r) for r in ROWS_MODWT],
           "levels_rows": [list(r) for r in ROWS_MODWT_LEVELS],
           "levels_bit_equal_to_chain": {k: all(v) for k, v in chain.items()},
           "levels_chain_cases": {k: len(v) for k, v in chain.items()},
           "levels_cluster_sizes": sorted({p[-1] for p in plans}),
+          "inv_levels_bit_equal_to_chain": {k: all(v)
+                                            for k, v in ichain.items()},
+          "inv_levels_chain_cases": {k: len(v) for k, v in ichain.items()},
+          "inv_levels_cluster_sizes": sorted({p[-1] for p in iplans}),
           "tolerance": {str(k)[6:]: v for k, v in TOL.items()},
           "worst_rel_err": worst})
 
@@ -1240,6 +1371,68 @@ def check_modwt_levels(dev, rng, worst):
                 f"launches: {key}")
     sizes = sorted({p[-1] for p in plans})
     require(sizes == [1, 2, 4, 8, 16], f"cluster sizes {sizes}")
+    return chain, plans
+
+
+def modwt_inv_chain(xw, wt):
+    """L launches of kernel M from ``xw (B, N, L+1)``, deepest level first,
+    each on the scaling band of the one before: what modwt_inv_levels
+    computes in one launch."""
+    L = xw.shape[2] - 1
+    v = xw[..., L]
+    for j in range(L, 0, -1):
+        v = modwt1d.modwt_inv(v, xw[..., j - 1], wt, j)
+    return v
+
+
+def check_modwt_inv_levels(dev, rng, worst):
+    """modwt_inv_levels on ROWS_MODWT_LEVELS for every wavelet and dtype,
+    over NaN-filled outputs: against its plain version, and whether it
+    equals the chain of M launches bit for bit (required in all three
+    dtypes); db4 reads every other item of a wider batch (a batch
+    stride); every cluster size 1-16 must occur; the rows of
+    ROWS_MODWT_UNPLANNED must lie beyond the plan, and the wrapper must
+    refuse them."""
+    chain, plans = {}, set()
+    nan = float("nan")
+    for (wname, kind) in WAVELETS_MODWT:
+        wt = wavelet(wname, kind)
+        nt = len(modwt_ops.modwt_filter_pair(wt)[0])
+        step = 2 if wname == "db4" else 1
+        for dt, tol in TOL.items():
+            key = str(dt)[6:]
+            for B, N, L in ROWS_MODWT_LEVELS:
+                plan = modwt1d.modwt_inv_plan(N, L, nt, dt, B)
+                require(plan.fits,
+                        f"modwt_inv_plan fits {(B, N, L)} {wname} {dt}")
+                plans.add((wname, B, N, L, key, plan.cluster))
+                xw = torch.from_numpy(rng.standard_normal(
+                    (step * B, N, L + 1))).to(dev).to(dt)[::step]
+                got = torch.full((B, N), nan, dtype=dt, device=dev)
+                launched("modwt_inv_levels",
+                         lambda: modwt1d.modwt_inv_levels(xw, wt, got))
+                check_all("kernelsmodwt", {
+                    "modwt_inv_levels": rel_err(
+                        got, modwt1d.modwt_inv_levels_plain(xw, wt))},
+                    (wname, B, N, L), dt, tol, worst)
+                chain.setdefault(key, []).append(
+                    torch.equal(got, modwt_inv_chain(xw, wt)))
+            for B, N, L in ROWS_MODWT_UNPLANNED:
+                require(not modwt1d.modwt_inv_plan(N, L, nt, dt, B).fits,
+                        f"{(B, N, L)} {wname} {dt} lies beyond the inverse's "
+                        "plan")
+    try:
+        modwt1d.modwt_inv_levels(torch.zeros((3, 1 << 17, 14), device=dev),
+                                 wt)
+        refused = False
+    except ValueError:
+        refused = True
+    require(refused, "modwt_inv_levels refuses a row beyond its plan")
+    for key in ("float32", "float64", "bfloat16"):
+        require(all(chain[key]), f"modwt_inv_levels bit-equal to chains of "
+                f"M launches: {key}")
+    sizes = sorted({p[-1] for p in plans})
+    require(sizes == [1, 2, 4, 8, 16], f"inverse cluster sizes {sizes}")
     return chain, plans
 
 
@@ -1399,16 +1592,48 @@ def phase_kernelsstage(dev):
                     check_all("kernelsstage", errs, (wname, B, m, n), dt, tol,
                               worst)
                     cases += 1
+    fresh = stage_fresh_draws(dev)
     require(bit_equal["float32"] and bit_equal["bfloat16"],
             f"N bit-equal to two A launches in f32 and bf16: {bit_equal}")
     require(all(first_equal.values()),
             f"N's strip form bit-equal to its first form: {first_equal}")
-    emit({"phase": "kernelsstage", "cases": cases,
+    emit({"phase": "kernelsstage", "cases": cases, "fresh_bf16": fresh,
           "shapes": [list(r) for r in SHAPES_STAGE],
           "wavelets": [nm for nm, _ in WAVELETS_STAGE],
           "tolerance": {str(k)[6:]: v for k, v in TOL.items()},
           "worst_rel_err": worst, "bit_equal_to_two_A_launches": bit_equal,
           "strips_bit_equal_to_first_form": first_equal})
+
+
+def stage_fresh_draws(dev):
+    """Kernel N on fresh bf16 draws from a seed of their own
+    (STAGE_FRESH_SEED): each wavelet of WAVELETS_STAGE on a 4 x 4 image
+    STAGE_FRESH_4x4 times and on each shape of SHAPES_STAGE once, strided
+    and contiguous, against its plain version (which sums as kernel A
+    does, so LL1 rounds from A's value) within 2^-7, and bit for bit
+    against two A launches."""
+    rng = np.random.default_rng(STAGE_FRESH_SEED)
+    dt, tol = torch.bfloat16, TOL[torch.bfloat16]
+    cases, worst, equal = 0, 0.0, True
+    shapes = ((1, 4, 4),) * STAGE_FRESH_4x4 + SHAPES_STAGE
+    for (wname, kind) in WAVELETS_STAGE:
+        wt = wavelet(wname, kind)
+        for B, m, n in shapes:
+            xs_ = strided(rng, (B, m, n), dt, dev)
+            for x in (xs_, xs_.contiguous()):
+                outs = launched("stage2_fw", lambda: stage2d.stage2_fw(x, wt))
+                e = max(map(rel_err, outs, stage2d.stage2_fw_plain(x, wt)))
+                require(e <= tol, f"N fresh bf16 draw {wname} {(B, m, n)}: "
+                        f"rel err {e:.3e} > {tol:.1e}")
+                worst = max(worst, e)
+                ll1, *d1 = level2d.level_fw(x, wt)
+                two = level2d.level_fw(ll1, wt)
+                equal = equal and all(torch.equal(g, r) for g, r in zip(
+                    outs, (two[0], *d1, *two[1:])))
+                cases += 1
+    require(equal, "N bit-equal to two A launches on the fresh bf16 draws")
+    return {"seed": STAGE_FRESH_SEED, "cases": cases, "worst_rel_err": worst,
+            "bit_equal_to_two_A_launches": equal}
 
 
 def phase_main(x):
@@ -1566,7 +1791,7 @@ def phase_main3d(x3):
 def phase_mainmodwt(xm, xlong):
     wt = wavelet("db4", "filter")
     L = MODWT_LEVELS
-    route = {"modwt_fw_levels": 1, "modwt_inv": L}
+    route = {"modwt_fw_levels": 1, "modwt_inv_levels": 1}
     W, launches, wall, rt = run_route(
         "modwt", lambda v: w.modwt(v, wt, L), lambda v: w.imodwt(v, wt), xm,
         route)
@@ -1588,7 +1813,7 @@ def phase_mainmodwt(xm, xlong):
           "f32_vs_plain_f64_rel_err": e32,
           "f64_roundtrip_max_abs_err": rt64,
           "f64_vs_torch_engine_rel_err": es})
-    # rows too long for the plan: one K launch per level
+    # rows too long for the plan: one K and one M launch per level
     Ll = MODWT_LONG_LEVELS
     require(not modwt1d.modwt_plan(xlong.shape[1], Ll, len(wt.qmf),
                                    xlong.dtype, xlong.shape[0]).fits,
@@ -1606,6 +1831,7 @@ def phase_mainmodwt(xm, xlong):
           "wall_s_first_call_pair": wall_l, "roundtrip_max_abs_err": rt_l,
           "f32_vs_plain_f64_rel_err": el})
     launches["modwt_fw"] = long_launches["modwt_fw"]
+    launches["modwt_inv"] = long_launches["modwt_inv"]
     return launches
 
 
@@ -2095,7 +2321,10 @@ def phase_forms(dev):
     (WAVELETS_STAGE) on a 512^2 image, the strip form below a span of 16
     (cdf97, haar, db4), the first form for coif4; H (TAIL_INV_WAVELETS) on
     (64, 4096) L8, the staged form below a span of 16 (cdf97, db4, sym5),
-    the first form for db10 and with staging off."""
+    the first form for db10 and with staging off; G (TAIL_FW_WAVELETS) the
+    same way, the staged form for cdf97 and db4, the first form for sym5
+    and db10 (a span of 16 or more) and with staging off; imodwt of
+    (64, 4096) db4 L6 rows one modwt_inv_levels launch."""
     rng = np.random.default_rng(8)
     stream = torch.cuda.current_stream().cuda_stream
     forms = {}
@@ -2157,6 +2386,22 @@ def phase_forms(dev):
         forms[f"H {wname} staging off"] = require_form(
             lambda: tail1d._launch_inv(yi, wt, 8, o, stream, staged=False),
             "tail1d_inv_kernel", f"H {wname} with staging off")
+    for (wname, kind) in TAIL_FW_WAVELETS:
+        wt = wavelet(wname, kind)
+        xi = randn(64, 4096)
+        o = torch.empty_like(xi)
+        forms[f"G {wname}"] = require_form(
+            lambda: tail1d.tail1d_fw(xi, wt, 8, out=o),
+            "tail1d_fw_staged_kernel" if tail1d.fw_window(wt)
+            else "tail1d_fw_kernel", f"G {wname}")
+        forms[f"G {wname} staging off"] = require_form(
+            lambda: tail1d._launch_fw(xi, wt, 8, o, stream, staged=False),
+            "tail1d_fw_kernel", f"G {wname} with staging off")
+    db4 = wavelet("db4", "filter")
+    xw = modwt1d.modwt(randn(64, 4096), db4, 6)
+    forms["imodwt db4 (64, 4096) L6"] = require_form(
+        lambda: w.imodwt(xw, db4), "modwt_inv_levels_kernel",
+        "imodwt of rows its plan fits")
     emit({"phase": "forms", "forms": forms})
 
 
@@ -2224,6 +2469,15 @@ def profiled_times(x, xs, rows):
         torch.cuda.synchronize()
         require(torch.equal(Wp, W), f"modwt_fw_levels with a cluster of {Pc}")
         sizes[f"P{Pc}"] = device_us(fn)
+    # the all-levels inverse beside the six M launches and six conv1d calls
+    ri = rows["modwt_inv_levels"]
+    xi = torch.empty_like(xm)
+    ri["device_us"] = device_us(lambda: modwt1d.modwt_inv_levels(W, db4, xi))
+    ri["chain_device_us"] = device_us(lambda: modwt_inv_chain(W, db4))
+    ri["library_device_us"] = device_us(library_modwt_inv_levels(W, db4))
+    xhi = torch.empty_like(xh)
+    inv_bf16_us = device_us(lambda: modwt1d.modwt_inv_levels(Wh, db4, xhi))
+    del xi, xhi
     nh_times = n_h_times(x, xs, rows)
     emit({"phase": "timesprofiled", "card": torch.cuda.get_device_name(0),
           **nh_times,
@@ -2237,12 +2491,17 @@ def profiled_times(x, xs, rows):
               "f32_device_us": r["device_us"], "bf16_device_us": bf16_us,
               "chain_device_us": r["chain_device_us"],
               "library_device_us": r["library_device_us"],
-              "cluster": r["cluster"], "cluster_sizes_device_us": sizes}})
+              "cluster": r["cluster"], "cluster_sizes_device_us": sizes},
+          "modwt_inv_levels_512x8192_L6": {
+              "f32_device_us": ri["device_us"], "bf16_device_us": inv_bf16_us,
+              "chain_device_us": ri["chain_device_us"],
+              "library_device_us": ri["library_device_us"],
+              "cluster": ri["cluster"]}})
 
 
 def n_h_times(x, xs, rows):
-    """Phase 5c: kernels N and H in both forms by profiler time (device us
-    per call) and CUDA events (ms).  N at 16384^2 levels 1-2, cdf97 f32:
+    """Phase 5c: kernels N, G and H in both forms by profiler time (device
+    us per call) and CUDA events (ms).  N at 16384^2 levels 1-2, cdf97 f32:
     the strip form (the wrapper's), its first form (launched with strips
     off, stage_tile's tile) and the two A launches it replaces, into the
     same planes; the strip form in bf16 and for db4.  H over the (4096,
@@ -2252,7 +2511,10 @@ def n_h_times(x, xs, rows):
     yardstick, not one call); and H's forms by size (``h_forms_by_size``):
     one row of 2^14 and of 2^11 through every level (db2; the first is the
     2^20 db2 L20 inverse's tail), and 1 to 4096 rows of 4096 (db4 L8),
-    each the less of two readings taken staged, first, staged, first."""
+    each the less of two readings taken staged, first, staged, first.  G
+    the same way (``g_forms_by_size``), beside a chain of eight strided
+    conv1d calls at (4096, 4096) db4 L8, and its staged form there in
+    bf16."""
     stream = torch.cuda.current_stream().cuda_stream
     cdf, db4 = w.wavelet(w.wt.cdf97, "lifting"), wavelet("db4", "filter")
     out = {}
@@ -2318,9 +2580,38 @@ def n_h_times(x, xs, rows):
     r["library_calls"] = "a chain of 8 polyphase conv1d calls, one per level"
     out["tail1d_inv_4096x4096_db4_L8"] = h
 
+    # G over the same rows: the staged form, the first form and a chain of
+    # eight strided conv1d calls (one per level, inputs prepared beforehand)
+    xb, L = xs[(4096, 4096)], 8
+    yg, yf = torch.empty_like(xb), torch.empty_like(xb)
+    lib, pack = library_tail1d_fw(xb, db4, L)
+    ref = tail1d.tail1d_fw(xb, db4, L, out=yg)
+    lrel = rel_err(pack(lib()), ref)
+    require(lrel <= LIBRARY_TOL, f"G's library chain: rel err {lrel:.3e}")
+    fns = {"staged": lambda: tail1d.tail1d_fw(xb, db4, L, out=yg),
+           "first_form": lambda: tail1d._launch_fw(xb, db4, L, yf, stream,
+                                                   staged=False),
+           "library_chain": lib}
+    g = {k: {"device_us": device_us(f), "ms": P.med3(lambda _: f(), xb, 20)
+             * 1e3} for k, f in fns.items()}
+    require(torch.equal(yf, yg), "G's forms agree at (4096, 4096) db4 L8")
+    xh = xb.to(torch.bfloat16)
+    yh = torch.empty_like(xh)
+    g["staged_bf16"] = {"device_us": device_us(
+        lambda: tail1d.tail1d_fw(xh, db4, L, out=yh))}
+    del lib, yf, xh, yh
+    r = rows["tail1d_fw"]
+    r["device_us"] = g["staged"]["device_us"]
+    r["first_form_ms"] = g["first_form"]["ms"]
+    r["first_form_device_us"] = g["first_form"]["device_us"]
+    r["library_chain_ms"] = g["library_chain"]["ms"]
+    r["library_chain_device_us"] = g["library_chain"]["device_us"]
+    r["library_calls"] = "a chain of 8 strided conv1d calls, one per level"
+    out["tail1d_fw_4096x4096_db4_L8"] = g
+
     db2 = wavelet("db2", "filter")
     rng = np.random.default_rng(10)
-    sweep = []
+    sweep, gsweep = [], []
     for B, n_, wt, L in ((1, 1 << 14, db2, 14), (1, 1 << 11, db2, 11),
                          (1, 4096, db4, 8), (16, 4096, db4, 8),
                          (256, 4096, db4, 8), (4096, 4096, db4, 8)):
@@ -2332,7 +2623,13 @@ def n_h_times(x, xs, rows):
               for st in (True, False, True, False)]
         sweep.append({"rows": B, "n": n_, "wavelet": wt.name, "levels": L,
                       "staged_us": min(us[0::2]), "first_us": min(us[1::2])})
+        us = [device_us(lambda: tail1d._launch_fw(yt, wt, L, ot, stream,
+                                                  staged=st))
+              for st in (True, False, True, False)]
+        gsweep.append({"rows": B, "n": n_, "wavelet": wt.name, "levels": L,
+                       "staged_us": min(us[0::2]), "first_us": min(us[1::2])})
     out["h_forms_by_size"] = sweep
+    out["g_forms_by_size"] = gsweep
     return out
 
 
@@ -2551,6 +2848,25 @@ def phase_timesmodwt(xm):
         lambda _: modwt1d.modwt_fw_levels(xb, wt, L, Wb), xb, 20) * 1e3
     out["f32"]["modwt_fw_levels_ms"] = rows["modwt_fw_levels"]["ms"]
     out["f32"]["modwt_fw_chain_ms"] = rows["modwt_fw_levels"]["chain_ms"]
+    # the all-levels inverse beside its plain version, the chain of M
+    # launches it replaces and L dilated conv1d calls (inputs prepared
+    # beforehand)
+    Wi, xi = fw(xm), torch.empty_like(xm)
+    rows["modwt_inv_levels"] = kernel_row(
+        "modwt_inv_levels", lambda: modwt1d.modwt_inv_levels(Wi, wt, xi),
+        lambda: modwt1d.modwt_inv_levels_plain(Wi, wt, xi), (xi,),
+        TOL[xm.dtype], library_modwt_inv_levels(Wi, wt), lambda o: [o[:, 0]])
+    rows["modwt_inv_levels"].update(
+        library_calls=L, chain_ms=P.med3(
+            lambda _: modwt_inv_chain(Wi, wt), xm, 10) * 1e3,
+        cluster=modwt1d.modwt_inv_plan(xm.shape[1], L, len(wt.qmf), xm.dtype,
+                                       xm.shape[0]).cluster)
+    Wbi, xbi = Wi.to(torch.bfloat16), torch.empty_like(xb)
+    out["bf16"]["modwt_inv_levels_ms"] = P.med3(
+        lambda _: modwt1d.modwt_inv_levels(Wbi, wt, xbi), xb, 20) * 1e3
+    out["f32"]["modwt_inv_levels_ms"] = rows["modwt_inv_levels"]["ms"]
+    out["f32"]["modwt_inv_chain_ms"] = rows["modwt_inv_levels"]["chain_ms"]
+    del Wbi, xbi
     emit(out)
     nbytes = 3 * xm.numel() * 4
     for name in ("modwt_fw", "modwt_inv"):
@@ -2558,10 +2874,12 @@ def phase_timesmodwt(xm):
             nbytes, 4 * len(wt.qmf) * xm.numel())
         rows[name]["copy_bound_ms"] = out["f32"]["copy_ms"] * 1.5
     # the transform's least traffic: x read once, L+1 planes written once
-    r = rows["modwt_fw_levels"]
-    r["bound_ms"], r["bound_by"] = bound(
-        (L + 2) * xm.numel() * 4, 4 * len(wt.qmf) * L * xm.numel())
-    r["copy_bound_ms"] = out["f32"]["copy_ms"] * (L + 2) / 2
+    # (the inverse: L+1 planes read once, x written once)
+    for name in ("modwt_fw_levels", "modwt_inv_levels"):
+        r = rows[name]
+        r["bound_ms"], r["bound_by"] = bound(
+            (L + 2) * xm.numel() * 4, 4 * len(wt.qmf) * L * xm.numel())
+        r["copy_bound_ms"] = out["f32"]["copy_ms"] * (L + 2) / 2
     return rows
 
 
@@ -2910,7 +3228,7 @@ def main():
            "tail1d_fw": "tail1d.cu", "tail1d_inv": "tail1d.cu",
            "axis0_fw": "axis0.cu", "axis0_inv": "axis0.cu",
            "modwt_fw": "modwt1d.cu", "modwt_inv": "modwt1d.cu",
-           "modwt_fw_levels": "modwt1d.cu",
+           "modwt_fw_levels": "modwt1d.cu", "modwt_inv_levels": "modwt1d.cu",
            "axis0_fw_halo": "axis0.cu", "axis0_inv_halo": "axis0.cu",
            "stage2_fw": "stage2d.cu"}
     replaces = {"level_fw": "wavelets_tpu/ops/pallas/mxu2d.py:1610",
@@ -2926,20 +3244,22 @@ def main():
                 "modwt_fw": "wavelets_tpu/ops/pallas/modwt1d.py:85",
                 "modwt_inv": "wavelets_tpu/ops/pallas/modwt1d.py:93",
                 "modwt_fw_levels": "wavelets_tpu/ops/pallas/modwt1d.py:85",
+                "modwt_inv_levels": "wavelets_tpu/ops/pallas/modwt1d.py:93",
                 "axis0_fw_halo": "wavelets_tpu/ops/pallas/axis0.py:318",
                 "axis0_inv_halo": "wavelets_tpu/ops/pallas/axis0.py:417",
                 "stage2_fw": "wavelets_tpu/ops/pallas/stage2d.py:154"}
     # the kernels redesigned for Hopper and their form: persistent blocks
     # staging 16-byte tiles with the bands in registers ("tiled", where
     # the span is below 16), a thread-block cluster per image or row, N's
-    # persistent strips walked downward ("strips") and H's rows staged
-    # once ("staged"), both below a span of 16
+    # persistent strips walked downward ("strips") and G's and H's rows
+    # staged once ("staged"), all below a span of 16
     redesigned = {"tail_fw": "cluster", "tail_inv": "cluster",
-                  "modwt_fw_levels": "cluster", "level_fw": "tiled",
+                  "modwt_fw_levels": "cluster",
+                  "modwt_inv_levels": "cluster", "level_fw": "tiled",
                   "level_inv": "tiled", "level1d_fw": "tiled",
                   "level1d_inv": "tiled", "axis0_inv": "tiled",
                   "axis0_inv_halo": "tiled", "stage2_fw": "strips",
-                  "tail1d_inv": "staged"}
+                  "tail1d_fw": "staged", "tail1d_inv": "staged"}
     # the TPU kernels that a route of phase 3g runs on a kernel above: its
     # name, the kernel, the row of measurements, the TPU kernel, and its
     # launches on that route

@@ -117,21 +117,26 @@ def test_level_zero_inverse_is_the_scaling_column():
 
 
 def test_route_is_one_launch_per_level():
-    """Rows that the plan fits take one modwt_fw_levels forward, rows it
-    does not (here a filter of 41 taps, more than the kernel's 32) one K
-    per level; the inverse one M per level.  On a CPU tensor each takes
-    its plain version and no kernel is launched."""
+    """Rows that the plan fits take one modwt_fw_levels forward and one
+    modwt_inv_levels inverse, rows it does not (here a filter of 41 taps,
+    more than the kernel's 32) one K and one M per level.  On a CPU tensor
+    each takes its plain version and no kernel is launched."""
     x = torch.zeros((4, 64))
-    for name, fw in (("db4", {"modwt_fw_levels": 1, "modwt_fw": 0}),
-                     ("batt4", {"modwt_fw_levels": 0, "modwt_fw": 5})):
+    for name, route in (("db4", {"modwt_fw_levels": 1, "modwt_fw": 0,
+                                 "modwt_inv_levels": 1, "modwt_inv": 0}),
+                        ("batt4", {"modwt_fw_levels": 0, "modwt_fw": 5,
+                                   "modwt_inv_levels": 0, "modwt_inv": 5})):
         _, wt = _carriers(name)
         assert modwt1d.modwt_plan(64, 5, len(wt.qmf), x.dtype, 4).fits == \
-            bool(fw["modwt_fw_levels"])
+            bool(route["modwt_fw_levels"])
+        assert modwt1d.modwt_inv_plan(64, 5, len(wt.qmf), x.dtype,
+                                      4).fits == bool(
+                                          route["modwt_inv_levels"])
         launches = dict(modwt1d.LAUNCHES)
         before = dict(modwt1d.PLAIN_CALLS)
         T.imodwt(T.modwt(x, wt, 5), wt)
         assert modwt1d.LAUNCHES == launches
-        want = {k: before[k] + n for k, n in dict(fw, modwt_inv=5).items()}
+        want = {k: before[k] + n for k, n in route.items()}
         assert modwt1d.PLAIN_CALLS == want
 
 
@@ -269,3 +274,115 @@ def test_narrow_dtypes_track_float64(dtype):
     back = T.imodwt(got, wt)
     assert np.abs(back.double().numpy() - x).max() <= 10 * tol * np.abs(
         x).max()
+
+
+# --- the all-levels inverse (modwt_inv_levels) --------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+@pytest.mark.parametrize("taps", [2, 8, 12, 24, 41])
+def test_modwt_inv_plan(taps, dtype):
+    """The inverse's plan is the forward's: the same shared layout (two
+    scaling buffers of H + R samples and a stage of R (L + 1) + E), so the
+    same answers for every row chip_smoke.py drives and for the rows
+    beyond it; at the main path's (512, 8192) db4 L6 a cluster of 4 blocks
+    (f32; bf16 2, f64 8), and 16 for one row."""
+    for B in (1, 3, 512):
+        for N, L in _PLAN_ROWS + ((1 << 20, 6), (1 << 17, 13), (64, 5)):
+            plan = modwt1d.modwt_inv_plan(N, L, taps, dtype, B)
+            assert plan == modwt1d.modwt_plan(N, L, taps, dtype, B)
+            assert plan.fits == (taps <= 32 and (N, L) not in (
+                (1 << 20, 6), (1 << 17, 13)))
+    if taps == 8:
+        main = {torch.float32: 4, torch.bfloat16: 2, torch.float64: 8}
+        assert modwt1d.modwt_inv_plan(8192, 6, 8, dtype, 512).cluster == \
+            main[dtype]
+        assert modwt1d.modwt_inv_plan(8192, 6, 8, dtype, 1).cluster == 16
+
+
+def _inv_chain(xw, wt):
+    """The chain of modwt_inv_plain levels, each scaling band in a plane
+    of the storage type: what imodwt computed level by level."""
+    B, N, L1 = xw.shape
+    v = xw[..., L1 - 1]
+    for j in range(L1 - 1, 0, -1):
+        v = modwt1d.modwt_inv_plain(v, xw[..., j - 1], wt, j,
+                                    out=torch.empty((B, N), dtype=xw.dtype))
+    return v
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+@pytest.mark.parametrize("name, N, L", [("db4", 64, 6), ("sym6", 1000, 9),
+                                        ("coif8", 96, 5), ("haar", 5, 2)])
+def test_inv_levels_plain_is_the_chain_of_M(name, N, L, dtype):
+    """modwt_inv_levels' plain version equals the chain of modwt_inv_plain
+    levels bit for bit in three dtypes (each scaling band rounded to the
+    storage type between levels), through the wrapper, through imodwt and
+    from a batch-strided input; imodwt runs it once."""
+    _, wt = _carriers(name)
+    xw = torch.from_numpy(np.random.default_rng(79).standard_normal(
+        (6, N, L + 1))).to(dtype)[::2]
+    want = _inv_chain(xw, wt)
+    assert torch.equal(modwt1d.modwt_inv_levels_plain(xw, wt), want)
+    out = torch.full((3, N), float("nan"), dtype=dtype)
+    assert modwt1d.modwt_inv_levels(xw, wt, out) is out
+    assert torch.equal(out, want)
+    before = dict(modwt1d.PLAIN_CALLS)
+    assert torch.equal(T.imodwt(xw, wt), want)
+    assert modwt1d.PLAIN_CALLS["modwt_inv_levels"] == \
+        before["modwt_inv_levels"] + 1
+    assert modwt1d.PLAIN_CALLS["modwt_inv"] == before["modwt_inv"]
+
+
+@pytest.fixture(scope="module")
+def jax_modwt_1000():
+    """The JAX package's modwt and imodwt of one (2, 1000) draw at every
+    level N = 1000 allows, computed once: {L: (xw, back)}."""
+    ref, _ = _carriers("db4")
+    x = np.random.default_rng(80).standard_normal((2, 1000))
+    out = {}
+    for L in range(1, T.maxmodwttransformlevels(1000) + 1):
+        xw = np.array(J.modwt(x, ref, L))
+        out[L] = (xw, np.asarray(J.imodwt(xw, ref)))
+    return out
+
+
+@pytest.mark.parametrize("L", range(1, 10))
+def test_imodwt_one_launch_matches_the_jax_package(L, jax_modwt_1000):
+    """imodwt of (2, 1000) db4 rows at every level N = 1000 allows (level
+    9's reach 7 * 256 wraps the row more than once): one modwt_inv_levels
+    call, within 1e-12 of the JAX package's imodwt in float64."""
+    assert T.maxmodwttransformlevels(1000) == 9
+    _, wt = _carriers("db4")
+    xw, want = jax_modwt_1000[L]
+    before = dict(modwt1d.PLAIN_CALLS)
+    got = T.imodwt(torch.from_numpy(xw), wt)
+    assert modwt1d.PLAIN_CALLS["modwt_inv_levels"] == \
+        before["modwt_inv_levels"] + 1
+    _close(got, want)
+
+
+def test_inv_levels_wrapper_checks_its_input():
+    """The wrapper takes (B, N, L+1) rows of L+1 contiguous samples with L
+    >= 1 and 2^L <= N, and refuses rows beyond its plan (41 taps); imodwt
+    runs those, and other layouts, one M per level."""
+    _, wt = _carriers("db4")
+    xw = torch.zeros((2, 16, 3))
+    with pytest.raises(ValueError):
+        modwt1d.modwt_inv_levels(xw[..., :1], wt)          # L = 0
+    with pytest.raises(ValueError):                      # 2^5 > 16
+        modwt1d.modwt_inv_levels(torch.zeros((2, 16, 6)), wt)
+    with pytest.raises(ValueError):                      # rows not contiguous
+        modwt1d.modwt_inv_levels(torch.zeros((2, 3, 16)).transpose(1, 2), wt)
+    with pytest.raises(ValueError):                      # out overlaps xw
+        modwt1d.modwt_inv_levels(xw, wt, xw[..., 0])
+    _, batt = _carriers("batt4")
+    with pytest.raises(ValueError, match="modwt_inv_plan"):
+        modwt1d.modwt_inv_levels(torch.zeros((2, 64, 3)), batt)
+    cols = torch.from_numpy(np.random.default_rng(81).standard_normal(
+        (2, 3, 16))).transpose(1, 2)
+    before = dict(modwt1d.PLAIN_CALLS)
+    got = T.imodwt(cols, wt)
+    assert modwt1d.PLAIN_CALLS["modwt_inv"] == before["modwt_inv"] + 2
+    assert torch.equal(got, T.imodwt(cols.contiguous(), wt))

@@ -11,6 +11,8 @@ kernel itself is held against the plain version on the card by
 chip_smoke.py (phase kernelsstage).
 """
 
+from fractions import Fraction
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -144,6 +146,150 @@ def test_plain_equals_two_level_launches(name, kind, dtype):
     ll2, *d2 = level2d.level_fw_plain(ll1, wt)
     for g, w in zip(got, (ll2, *d1, *d2)):
         assert torch.equal(g, w)
+
+
+# --- the bfloat16 two-level plain version sums as kernel A does -----------
+
+def _round_f32(q):
+    """The float32 nearest the rational q, ties to even."""
+    f = np.float32(float(q))
+    near = (np.nextafter(f, np.float32(-np.inf)), f,
+            np.nextafter(f, np.float32(np.inf)))
+    return min(near, key=lambda v: (abs(Fraction(float(v)) - q),
+                                    int(np.array(v).view(np.uint32)) & 1))
+
+
+def _pass_a(v, wt, axis, count):
+    """One pass of kernel A along ``axis`` of the float32 array ``v``:
+    each band's taps in table order, one exact fma each (the coefficient
+    rounded to float32 as the band table holds it).  ``count[0]`` gains
+    one for each fma whose float64 emulation (the exact product plus the
+    sum in float64, rounded to float32) differs: a double rounding."""
+    ds, cs, dd, cd = level2d.level_bands(wt)
+    v = np.moveaxis(v, axis, -1)
+    n = v.shape[-1]
+    outs = []
+    for deltas, coefs in ((ds, cs), (dd, cd)):
+        c32 = [np.float32(c) for c in coefs]
+        o = np.zeros(v.shape[:-1] + (n // 2,), np.float32)
+        for idx in np.ndindex(*v.shape[:-1]):
+            for k in range(n // 2):
+                acc = np.float32(0)
+                for dl, c in zip(deltas, c32):
+                    x = v[idx + ((2 * k + int(dl)) % n,)]
+                    exact = _round_f32(Fraction(float(c)) * Fraction(float(x))
+                                       + Fraction(float(acc)))
+                    count[0] += exact != np.float32(
+                        np.float64(c) * np.float64(x) + np.float64(acc))
+                    acc = exact
+                o[idx + (k,)] = acc
+        outs.append(np.moveaxis(o, -1, axis))
+    return outs
+
+
+def _bf16(a):
+    return torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16)
+
+
+def _two_a_launches(x, wt):
+    """Two launches of kernel A on the bfloat16 image ``x (m, n)``, in
+    exact arithmetic: each level's row pass, then its column pass on the
+    two float32 bands, the outputs rounded to bfloat16 (LL1 before level
+    2 reads it).  Returns (LL2, LH1, HL1, HH1, LH2, HL2, HH2) and the
+    double roundings met."""
+    count = [0]
+
+    def level(v):
+        a, d = _pass_a(v, wt, -1, count)
+        ll, hl = _pass_a(a, wt, -2, count)
+        lh, hh = _pass_a(d, wt, -2, count)
+        return [_bf16(p) for p in (ll, lh, hl, hh)]
+
+    ll1, *d1 = level(x.float().numpy())
+    ll2, *d2 = level(ll1.float().numpy())
+    return (ll2, *d1, *d2), count[0]
+
+
+def _rel_planes(got, want):
+    """chip_smoke.py's phase-2f measure: the largest over the planes of
+    max |got - want| / max |want|."""
+    return max((g.double() - w.double()).abs().max().item()
+               / (w.double().abs().max().item() or 1.0)
+               for g, w in zip(got, want))
+
+
+# (wavelet, kind, shape, seed): haar 4 x 4 draws 185 and 99, on which the
+# sum of rounded products missed 2^-7 against two A launches (by 0.119 and
+# 7.87e-3), then fresh draws
+BF16_DRAWS = [("haar", "lifting", (4, 4), 185), ("haar", "lifting", (4, 4), 99),
+              ("haar", "lifting", (4, 4), 1101),
+              ("haar", "lifting", (8, 4), 1102),
+              ("cdf97", "lifting", (8, 8), 1103),
+              ("db4", "filter", (8, 8), 1104)]
+
+
+@pytest.mark.parametrize("name, kind, shape, seed", BF16_DRAWS)
+def test_bf16_two_levels_sum_as_kernel_a(name, kind, shape, seed):
+    """N's bfloat16 plain version against two launches of kernel A worked
+    out exactly (one fma per tap in table order, the row pass, then the
+    column pass): bit for bit, so LL1 rounds to bfloat16 from A's float32
+    sum, and so within chip_smoke.py's 2^-7 at once; the chain of two
+    level_fw_plain calls is the same.  No double rounding of the float64
+    fma emulation occurs on these draws (counted).  The former plain
+    version, a sum of rounded products, missed 2^-7 on the recorded
+    draws."""
+    _, wt = _carriers(name, kind)
+    x = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        shape)).to(torch.bfloat16)
+    want, ties = _two_a_launches(x, wt)
+    assert ties == 0
+    got = [p[0] for p in stage2d.stage2_fw_plain(x[None], wt)]
+    ll1, *d1 = level2d.level_fw_plain(x[None], wt)
+    ll2, *d2 = level2d.level_fw_plain(ll1, wt)
+    for g, c, w in zip(got, (ll2, *d1, *d2), want):
+        assert torch.equal(g, c[0]) and torch.equal(g, w)
+    assert _rel_planes(got, want) <= 2.0 ** -7
+    f32 = x.float()[None]
+    o1, *e1 = level2d.quads_fw(f32, wt)
+    o2, *e2 = level2d.quads_fw(o1.to(torch.bfloat16).float(), wt)
+    old = [p[0].to(torch.bfloat16) for p in (o2, *e1, *e2)]
+    if seed in (185, 99):
+        assert _rel_planes(old, want) > 2.0 ** -7
+
+
+@pytest.mark.parametrize("name, kind", [("haar", "lifting"),
+                                        ("haar", "filter")])
+def test_bf16_plain_against_jax_stage(name, kind):
+    """The same bfloat16 image through the JAX package's stage2_fw (in
+    interpret mode, the smallest shape its tiles take), N's plain version
+    and two level_fw_plain calls: the port's two agree bit for bit, the
+    JAX package within 2^-5 relative per plane.  The JAX kernel rounds
+    more: its row-pass planes and LL1 are cast to the storage type before
+    the column pass and level 2 (wavelets_tpu/ops/pallas/stage2d.py), and
+    its dots run in bfloat16; kernel A and the plain version keep the row
+    pass in float32."""
+    ref, wt = _carriers(name, kind)
+    m, n = SHAPE
+    x = np.array(jnp.asarray(np.random.default_rng(185).standard_normal(
+        SHAPE), jnp.bfloat16).astype(jnp.float32))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("WAVELETS_TPU_MXU_LS2", "1")
+        with pltpu.force_tpu_interpret_mode():
+            ll2, y = JS.stage2_fw(jnp.asarray(x, jnp.bfloat16), None, SHAPE,
+                                  ref, last=False)
+    y = np.asarray(y.astype(jnp.float32), np.float64)
+    want = (np.asarray(ll2.astype(jnp.float32), np.float64),
+            y[: m // 2, n // 2:], y[m // 2:, : n // 2], y[m // 2:, n // 2:],
+            y[: m // 4, n // 4: n // 2], y[m // 4: m // 2, : n // 4],
+            y[m // 4: m // 2, n // 4: n // 2])
+    xt = torch.from_numpy(x).to(torch.bfloat16)[None]
+    got = stage2d.stage2_fw_plain(xt, wt)
+    ll1, *d1 = level2d.level_fw_plain(xt, wt)
+    two = level2d.level_fw_plain(ll1, wt)
+    for g, c in zip(got, (two[0], *d1, *two[1:])):
+        assert torch.equal(g, c)
+    for g, w in zip(got, want):
+        assert _rel(g[0].double().numpy(), w) <= TOL["bfloat16"]
 
 
 def test_stage_route_gate():

@@ -127,15 +127,22 @@ __device__ __forceinline__ void load_words(A (&xv)[N], const T* src, int cnt) {
 }
 
 // load_words with the widest word that the caller's alignment `gran`
-// (16, 8, or the element's size, in bytes) allows.
+// (16, 8, 4 for a 2-byte element, or the element's size, in bytes)
+// allows.
 template <typename T, typename A, int N>
 __device__ __forceinline__ void load_window(A (&xv)[N], const T* src, int cnt, int gran) {
   if (gran == 16)
     load_words<16>(xv, src, cnt);
   else if (gran == 8)
     load_words<8>(xv, src, cnt);
-  else
+  else if constexpr (sizeof(T) == 2) {
+    if (gran == 4)
+      load_words<4>(xv, src, cnt);
+    else
+      load_words<2>(xv, src, cnt);
+  } else {
     load_words<sizeof(T)>(xv, src, cnt);
+  }
 }
 
 // The widest of 16 and 8 bytes (else the element) that divides the byte

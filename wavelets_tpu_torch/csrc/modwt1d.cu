@@ -1,7 +1,7 @@
-// The periodic MODWT over (B, N) rows: all levels of a row in one launch
-// (kernel modwt_fw_levels), and one level forward (kernel K) and inverse
-// (kernel M): the undecimated, dilated filter pair of ops/modwt.py, with
-// the taps k * 2^(j-1) apart.
+// The periodic MODWT over (B, N) rows: all levels of a row in one launch,
+// forward (kernel modwt_fw_levels) and inverse (modwt_inv_levels), and one
+// level forward (kernel K) and inverse (kernel M): the undecimated,
+// dilated filter pair of ops/modwt.py, with the taps k * 2^(j-1) apart.
 //
 // Replaces: wavelets_tpu/ops/pallas/modwt1d.py, modwt_pallas (_step and
 // _fw_kernel: v_j and w_j from one read of v_{j-1}, per level, then a
@@ -41,6 +41,14 @@
 //   equals a chain of K launches bit for bit.
 // A row whose layout no cluster of up to 16 blocks can hold runs one K
 // launch per level (the plan decides before the launch).
+//
+// modwt_inv_levels is the other half of the design, in the same layout
+// and plan (see its kernel below).  M per level took 322.5 us on an
+// H100 at (512, 8192) db4 L6 in six launches: one output per thread, two taps
+// from shared memory and two scalar loads per tap, w_j read as a column
+// of (B, N, L+1) at element stride L+1 (one 4-byte element per 28-byte
+// row, sector after sector), and each v_j through a scratch plane in
+// device memory.
 //
 // Kernels K and M: one thread per output sample, a block per M_THREADS
 // samples of one row (blockIdx.x runs over row tiles, then rows).  Every
@@ -111,10 +119,13 @@ modwt_inv_kernel(Rows<const T> v1, Rows<const T> w1, Rows<T> v, int N,
   const int b = blockIdx.x / tiles;
   const int t = (blockIdx.x % tiles) * M_THREADS + threadIdx.x;
   if (t >= N) return;
+  // one fma per tap, the detail term then the scaling term, taps in
+  // order: the sum that modwt_inv_levels_kernel repeats bit for bit
   A acc = 0;
   int idx = t;  // (t + n dil) mod N
   for (int n = 0; n < nt; ++n) {
-    acc += cf[nt + n] * ld(*w1.at(b, idx)) + cf[n] * ld(*v1.at(b, idx));
+    acc = fma(cf[nt + n], ld(*w1.at(b, idx)), acc);
+    acc = fma(cf[n], ld(*v1.at(b, idx)), acc);
     idx += dil;
     if (idx >= N) idx -= N;
   }
@@ -295,6 +306,190 @@ modwt_fw_levels_kernel(Rows<const T> x, int B, T* __restrict__ out, int64_t osb,
   cl_wait();  // no block leaves while another may read its buffers
 }
 
+// All L levels of the inverse MODWT of each row: xw (B, N, L+1) with
+// batch stride xsb, row stride L+1 and unit element stride -> out (B, N)
+// with row stride osr and unit element stride.  The mirror of
+// modwt_fw_levels_kernel, in its layout (ModwtGeom): two scaling buffers
+// of H + R elements and a stage of R (L + 1) + E.  Block p of a row's
+// cluster owns [t0, t0 + own) = [p R, min(N, (p + 1) R)):
+// * The stage: the block's span xw[b, t0 : t0 + own, 0 : L+1], one
+//   contiguous run, fetched once in 16-byte cp.async words (a partial
+//   first or last word element by element) and kept in the input's own
+//   (t, j) layout, at stage0 + mis (mis: the run's offset in its first
+//   word), so no column is ever read at stride L+1 from device memory.
+// * Level j (L down to 1): v_{j-1}[t] = sum_n h[n] w_j[(t + n 2^(j-1)) mod N]
+//   + g[n] v_j[(t + n 2^(j-1)) mod N].  The reach lies after the block's
+//   range: (taps - 1) 2^(j-1) samples, wrapped by a true modulo on the
+//   sample and the owning block, as often as the row requires.  Before the
+//   level each block copies v_j's halo from its neighbours' scaling
+//   buffers (at level L: their stages' column L) behind its own v_j, and
+//   w_j's from their stages into the free buffer's tail, both through
+//   distributed shared memory; so the tap loop does not wrap.  One cluster
+//   barrier per level.
+// * v_j stays in the storage type in the two alternating buffers, so
+//   bfloat16 rounds it where a chain of M launches does, and each sum is
+//   M's: one fma per tap, the detail term then the scaling term, taps in
+//   order, unrolled to the template K (8, 16 or 32) in registers.  The
+//   outputs whose reach stays inside the block's range (all but the last
+//   (taps - 1) 2^(j-1)) run four to a thread, MW_THREADS apart: four
+//   independent sums whose loads share their addressing, w_j from the
+//   stage; the rest one to a thread, w_j from the stage or the halo.
+// * v_0 goes to the free buffer, then to out[b, t0 : t0 + own], one
+//   contiguous span, in 16-byte words; meanwhile the next row's span is
+//   fetched into the stage (persistent clusters walk the rows).
+constexpr int MI_OUTS = 4;  // outputs per thread and pass, MW_THREADS apart
+
+template <typename T, int K>
+__global__ void __launch_bounds__(MW_THREADS)
+modwt_inv_levels_kernel(const T* __restrict__ xw, int64_t xsb, int B, T* __restrict__ out,
+                        int64_t osr, ModwtGeom g,
+                        const typename Acc<T>::type* __restrict__ taps, int nt) {
+  using A = typename Acc<T>::type;
+  constexpr int E = 16 / sizeof(T);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const cg::cluster_group cl = cg::this_cluster();
+  const int rank = static_cast<int>(cl.block_rank());
+  const int tid = threadIdx.x;
+  const int L1 = g.L + 1, t0 = rank * g.R;
+  const int own = max(0, min(g.R, g.N - t0));
+  const int rows_step = gridDim.x / g.P;
+  T* cur = reinterpret_cast<T*>(smem_raw);
+  T* nxt = cur + g.buf(E);
+  T* const stage0 = nxt + g.buf(E);
+  A cs[K], cw[K];  // g and h
+#pragma unroll
+  for (int n = 0; n < K; ++n) {
+    cs[n] = n < nt ? taps[n] : A(0);
+    cw[n] = n < nt ? taps[nt + n] : A(0);
+  }
+  // the offset of block q's run in its first 16-byte word, for row b
+  const auto mis_of = [&](int b, int q) {
+    const T* p = xw + static_cast<int64_t>(b) * xsb + static_cast<int64_t>(q) * g.R * L1;
+    return static_cast<int>((reinterpret_cast<uintptr_t>(p) & 15) / sizeof(T));
+  };
+  // fetch row b's span into the stage: the 16-byte words that hold it,
+  // by cp.async where whole, the partial first and last words element by
+  // element (nothing outside the span is read)
+  const auto fetch = [&](int b) {
+    const int mis = mis_of(b, rank), n = own * L1;
+    const T* base = xw + static_cast<int64_t>(b) * xsb + static_cast<int64_t>(t0) * L1 - mis;
+    const int words = (mis + n + E - 1) / E;
+    for (int wi = tid; wi < words; wi += MW_THREADS) {
+      const int e0 = wi * E;
+      if (e0 >= mis && e0 + E <= mis + n) {
+        cp_async16(stage0 + e0, base + e0);
+      } else {
+#pragma unroll
+        for (int e = 0; e < E; ++e)
+          if (e0 + e >= mis && e0 + e < mis + n) stage0[e0 + e] = base[e0 + e];
+      }
+    }
+    cp_async_commit();
+  };
+  int b = blockIdx.x / g.P;
+  fetch(b);
+  cp_async_wait<0>();
+  __syncthreads();
+  cl_arrive();  // this block's span of row b is in place
+
+  for (; b < B; b += rows_step) {
+    cl_wait();  // every block's span of row b in place, and row b - 1 done
+    const int mis = mis_of(b, rank);
+    const T* stage = stage0 + mis;  // stage[t * L1 + j]: xw[b, t0 + t, j]
+    for (int j = g.L; j >= 1; --j) {
+      const int dil = 1 << (j - 1);  // 2^(j-1) <= N / 2
+      const int hj = (nt - 1) * dil;
+      // level L's v_L: the stage's column L, into the buffer
+      if (j == g.L)
+        for (int i = tid; i < own; i += MW_THREADS) cur[i] = stage[i * L1 + g.L];
+      // the halos, from their owners: cur[own + i] = v_j[(t0 + own + i)
+      // mod N], nxt[own + i] = w_j[...]
+      for (int i = tid; i < hj; i += MW_THREADS) {
+        const int s = (t0 + own + i) % g.N;
+        const int q = s / g.R, off = s - q * g.R;
+        const T* st_q = stage0 + mis_of(b, q) + off * L1;
+        const T* v_q = j == g.L ? st_q + g.L : cur + off;
+        const T* w_q = st_q + j - 1;
+        if (q != rank) {
+          v_q = cl.map_shared_rank(v_q, q);
+          w_q = cl.map_shared_rank(w_q, q);
+        }
+        cur[own + i] = *v_q;
+        nxt[own + i] = *w_q;
+      }
+      if (j == 1) cl_arrive();  // this row's reads of other blocks are done
+      __syncthreads();
+      const T* wj = stage + j - 1;
+      // the outputs [0, inner) reach no further than the block's range
+      const int inner = max(0, own - hj), dw = dil * L1;
+      for (int t = tid; t < inner; t += MI_OUTS * MW_THREADS) {
+        A acc[MI_OUTS];
+#pragma unroll
+        for (int k = 0; k < MI_OUTS; ++k) acc[k] = A(0);
+        const T* pv = cur + t;
+        const T* pw = wj + t * L1;
+#pragma unroll
+        for (int n = 0; n < K; ++n)
+          if (n < nt) {
+#pragma unroll
+            for (int k = 0; k < MI_OUTS; ++k)
+              if (t + k * MW_THREADS < inner) {
+                acc[k] = fma(cw[n], ld(pw[k * MW_THREADS * L1]), acc[k]);
+                acc[k] = fma(cs[n], ld(pv[k * MW_THREADS]), acc[k]);
+              }
+            pv += dil;
+            pw += dw;
+          }
+#pragma unroll
+        for (int k = 0; k < MI_OUTS; ++k)
+          if (t + k * MW_THREADS < inner) st(nxt + t + k * MW_THREADS, acc[k]);
+      }
+      for (int t = inner + tid; t < own; t += MW_THREADS) {
+        A acc = 0;
+#pragma unroll
+        for (int n = 0; n < K; ++n)
+          if (n < nt) {
+            const int idx = t + n * dil;
+            acc = fma(cw[n], ld(idx < own ? wj[idx * L1] : nxt[idx]), acc);
+            acc = fma(cs[n], ld(cur[idx]), acc);
+          }
+        st(nxt + t, acc);
+      }
+      if (j > 1) {
+        cl.sync();  // v_{j-1} complete in every block; nobody reads cur any more
+        T* tp = cur;
+        cur = nxt;
+        nxt = tp;
+      }
+    }
+    __syncthreads();  // v_0 complete in nxt; this block's reads of its stage done
+    cl_wait();        // and every other block's (they arrived after their halos)
+    if (b + rows_step < B) fetch(b + rows_step);
+    // out[b, t0 : t0 + own] from nxt: 16-byte words where whole
+    T* ob = out + static_cast<int64_t>(b) * osr + t0;
+    const int mo = static_cast<int>((reinterpret_cast<uintptr_t>(ob) & 15) / sizeof(T));
+    T* base = ob - mo;  // 16-byte aligned
+    const int words = (mo + own + E - 1) / E;
+    for (int wi = tid; wi < words; wi += MW_THREADS) {
+      const int e0 = wi * E - mo;  // nxt index of the word's first element
+      if (e0 >= 0 && e0 + E <= own) {
+        __align__(16) T wv[E];
+#pragma unroll
+        for (int e = 0; e < E; ++e) wv[e] = nxt[e0 + e];
+        *reinterpret_cast<uint4*>(base + wi * E) = *reinterpret_cast<const uint4*>(wv);
+      } else {
+#pragma unroll
+        for (int e = 0; e < E; ++e)
+          if (e0 + e >= 0 && e0 + e < own) ob[e0 + e] = nxt[e0 + e];
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // the next span staged; nxt read
+    cl_arrive();  // this block's next span is in place, its row b done
+  }
+  cl_wait();  // no block leaves while another may read its shared memory
+}
+
 constexpr int64_t M_MAX_BLOCKS = 2147483647;
 
 template <typename T>
@@ -372,6 +567,46 @@ int modwt_fw_levels(int B, int N, int L, const void* x, int64_t xsr, int64_t xse
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
+
+template <typename T, int K>
+int modwt_inv_levels_k(int B, const ModwtGeom& g, const void* xw, int64_t xsb, void* out,
+                       int64_t osr, const void* taps, int nt, size_t smem,
+                       cudaStream_t stream) {
+  using A = typename Acc<T>::type;
+  auto kernel = modwt_inv_levels_kernel<T, K>;
+  int fit = 0;
+  const int status = cluster_fit(kernel, MW_THREADS, smem, g.P, &fit);
+  if (status != 0) return status;
+  return launch_cluster(kernel, (B < fit ? B : fit) * g.P, MW_THREADS, smem, g.P, stream,
+                        static_cast<const T*>(xw), xsb, B, static_cast<T*>(out), osr, g,
+                        static_cast<const A*>(taps), nt);
+}
+
+// plan: P, R, H, K (ops/modwt1d.py, modwt_inv_plan: the forward's plan,
+// the layout being the same); refused as for the forward.
+template <typename T>
+int modwt_inv_levels(int B, int N, int L, const void* xw, int64_t xsb, void* out,
+                     int64_t osr, const void* taps, int nt, const int* plan, size_t smem,
+                     cudaStream_t stream) {
+  const ModwtGeom g{N, L, plan[0], plan[1], plan[2]};
+  const int K = plan[3];
+  if (g.P < 1 || g.P > 16 || (g.P & (g.P - 1)) || L < 1 || L > 30 ||
+      (1 << L) > N || g.R < 1 || static_cast<int64_t>(g.R) * g.P < N ||
+      static_cast<int64_t>(g.R) * (g.P - 1) >= N || nt < 1 || nt > K ||
+      static_cast<int64_t>(g.H) < static_cast<int64_t>(nt - 1) << (L - 1) ||
+      static_cast<size_t>(g.elems(16 / sizeof(T))) * sizeof(T) > smem ||
+      static_cast<int64_t>(B) * g.P > M_MAX_BLOCKS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (K) {
+    case 8:
+      return modwt_inv_levels_k<T, 8>(B, g, xw, xsb, out, osr, taps, nt, smem, stream);
+    case 16:
+      return modwt_inv_levels_k<T, 16>(B, g, xw, xsb, out, osr, taps, nt, smem, stream);
+    case 32:
+      return modwt_inv_levels_k<T, 32>(B, g, xw, xsb, out, osr, taps, nt, smem, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
 }  // namespace wtt
 
 extern "C" {
@@ -430,6 +665,25 @@ int wtt_modwt_fw_levels(int dtype, int B, int N, int L, const void* x, int64_t x
       return wtt::modwt_fw_levels<double>(B, N, L, x, xsr, xse, out, osb, taps, nt, plan, sm, s);
     case wtt::BF16:
       return wtt::modwt_fw_levels<__nv_bfloat16>(B, N, L, x, xsr, xse, out, osb, taps, nt, plan, sm, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// All levels inverse.  xw: (B, N, L+1) with batch stride xsb, row stride
+// L+1 and unit element stride; out: (B, N) with row stride osr and unit
+// element stride.  taps, plan and smem as for the forward.
+int wtt_modwt_inv_levels(int dtype, int B, int N, int L, const void* xw, int64_t xsb,
+                         void* out, int64_t osr, const void* taps, int nt, const int* plan,
+                         int64_t smem, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  const auto sm = static_cast<size_t>(smem);
+  switch (dtype) {
+    case wtt::F32:
+      return wtt::modwt_inv_levels<float>(B, N, L, xw, xsb, out, osr, taps, nt, plan, sm, s);
+    case wtt::F64:
+      return wtt::modwt_inv_levels<double>(B, N, L, xw, xsb, out, osr, taps, nt, plan, sm, s);
+    case wtt::BF16:
+      return wtt::modwt_inv_levels<__nv_bfloat16>(B, N, L, xw, xsb, out, osr, taps, nt, plan, sm, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -74,9 +74,10 @@ _SIGNATURES = {
     # stream
     "wtt_level1d_inv": [_I, _I, _I, _P, _L, _P, _L, _P, _L, _P, _P, _P, _I,
                         _I, _P],
-    # dtype, B, n, L, x, xs, y, ys, offs, coefs, ns, nd, dmin, span, stream
+    # dtype, B, n, L, x, xs, y, ys, offs, coefs, ns, nd, dmin, span, window,
+    # stream
     "wtt_tail1d_fw": [_I, _I, _I, _I, _P, _L, _P, _L, _P, _P, _I, _I, _I, _I,
-                      _P],
+                      _I, _P],
     # dtype, B, n, L, y, ys, out, os, offs, coefs, counts[], smin, span,
     # window, stream
     "wtt_tail1d_inv": [_I, _I, _I, _I, _P, _L, _P, _L, _P, _P, _P, _I, _I,
@@ -108,6 +109,9 @@ _SIGNATURES = {
     # nt, stream
     "wtt_modwt_inv": [_I, _I, _I, _I, _P, _L, _L, _P, _L, _L, _P, _L, _L, _P,
                       _I, _P],
+    # dtype, B, N, L, xw, xwsb, out, osr, taps, nt, plan[4], smem, stream
+    "wtt_modwt_inv_levels": [_I, _I, _I, _I, _P, _L, _P, _L, _P, _I, _P, _L,
+                             _P],
 }
 
 

@@ -109,11 +109,18 @@ def _planes_args(planes):
 
 # --- plain versions ----------------------------------------------------------
 
-def _analysis(v, wt, dim, ext=None):
+def _analysis(v, wt, dim, ext=None, fused=False):
     """(a, d) of one periodic level of ``v`` along ``dim``, from the bands.
     With ``ext = (lead, n)``, ``v`` holds ``lead`` halo rows, then the n
     rows to transform, then halo rows below them: the level reads row
-    ``lead + 2k + delta`` of ``v`` and never wraps."""
+    ``lead + 2k + delta`` of ``v`` and never wraps.
+
+    ``fused`` (``v`` in float32) sums as the kernels do: one fma per tap,
+    taps in table order, the coefficient first rounded to float32 as the
+    band table holds it.  The fma is emulated in float64, where the
+    product of two float32 values is exact; the float64 sum rounded to
+    float32 equals the fma except at a double rounding: an inexact
+    float64 sum that lands exactly halfway between two float32 values."""
     n, lead, wrap = v.shape[dim], 0, True
     if ext is not None:
         (lead, n), wrap = ext, False
@@ -124,8 +131,13 @@ def _analysis(v, wt, dim, ext=None):
         acc = None
         for dl, c in zip(deltas, coefs):
             idx = k2 + int(dl)
-            t = float(c) * v.index_select(dim, idx % n if wrap else idx)
-            acc = t if acc is None else acc + t
+            x = v.index_select(dim, idx % n if wrap else idx)
+            if fused:
+                t = float(torch.tensor(c, dtype=torch.float32)) * x.double()
+                acc = (t if acc is None else t + acc.double()).to(v.dtype)
+            else:
+                t = float(c) * x
+                acc = t if acc is None else acc + t
         return acc
 
     return corr(ds, cs), corr(dd, cd)
@@ -154,11 +166,13 @@ def _synthesis(s, d, wt, dim, ext=None):
     return torch.stack(parts, dim=dim + 1).flatten(dim, dim + 1)
 
 
-def quads_fw(v, wt):
-    """(LL, LH, HL, HH) of one level of ``v (..., m, n)``, in v's dtype."""
-    a, d = _analysis(v, wt, -1)
-    ll, hl = _analysis(a, wt, -2)
-    lh, hh = _analysis(d, wt, -2)
+def quads_fw(v, wt, fused=False):
+    """(LL, LH, HL, HH) of one level of ``v (..., m, n)``, in v's dtype:
+    the row pass, then the column pass on its two bands (not rounded in
+    between), each summed as ``_analysis`` sums with ``fused``."""
+    a, d = _analysis(v, wt, -1, fused=fused)
+    ll, hl = _analysis(a, wt, -2, fused=fused)
+    lh, hh = _analysis(d, wt, -2, fused=fused)
     return ll, lh, hl, hh
 
 
@@ -185,11 +199,16 @@ def _fw_outs(x, outs):
 
 def level_fw_plain(x, wt, outs=None):
     """Plain PyTorch version of :func:`level_fw` (same outputs, same
-    layout), computed with index_select gathers in the arithmetic type."""
+    layout), computed with index_select gathers in the arithmetic type.
+    In bfloat16 it sums as kernel A does (``quads_fw(..., fused=True)``),
+    so that an output rounds to bfloat16 from A's float32 sum; float32
+    and float64 sum each tap's product (within their tolerances of A's
+    sums, and cheaper on the CPU)."""
     _check_input(x)
     outs = _fw_outs(x, outs)
     PLAIN_CALLS["level_fw"] += 1
-    for o, v in zip(outs, quads_fw(x.to(acc_dtype(x.dtype)), wt)):
+    for o, v in zip(outs, quads_fw(x.to(acc_dtype(x.dtype)), wt,
+                                   fused=x.dtype == torch.bfloat16)):
         o.copy_(v)
     return outs
 

@@ -1,12 +1,15 @@
 """The periodic MODWT over ``(B, N)`` rows: the CUDA kernels (all forward
-levels of a row in one launch; one level forward, K, and inverse, M),
-their plain versions, and the multi-level driver.
+levels of a row in one launch, and all inverse levels; one level forward,
+K, and inverse, M), their plain versions, and the multi-level driver.
 
 ``modwt_fw_levels`` takes ``x (B, N)`` through levels 1..L into the
 ``(B, N, L+1)`` result in one launch: a thread-block cluster per row keeps
 the scaling band in shared memory for every level and writes each block's
 span of the result once, contiguously (:func:`modwt_plan` picks the
-cluster).  ``modwt_fw`` takes the level-(j-1) scaling band ``v (B, N)`` to
+cluster).  ``modwt_inv_levels`` is its inverse, in the same layout: each
+block reads its span of ``(B, N, L+1)`` once, contiguously, and writes
+its span of the ``(B, N)`` result once (:func:`modwt_inv_plan`).
+``modwt_fw`` takes the level-(j-1) scaling band ``v (B, N)`` to
 ``(v_j, w_j)`` from one read of ``v``; ``modwt_inv`` takes ``(v_j, w_j)``
 back to ``v``.  The taps are ``2^(j-1)`` apart and wrap with a true modulo,
 so any ``N >= 2^j`` runs.  Every plane of K and M is a view with a row
@@ -39,12 +42,15 @@ from .modwt import check_levels, imodwt_step, modwt_filter_pair, modwt_step
 from .scratch import Scratch
 
 __all__ = ["LAUNCHES", "PLAIN_CALLS", "ModwtPlan", "modwt_plan",
-           "cluster_plan", "modwt_fw_levels", "modwt_fw_levels_plain",
-           "modwt_fw", "modwt_fw_plain", "modwt_inv", "modwt_inv_plain",
-           "modwt", "imodwt"]
+           "modwt_inv_plan", "cluster_plan", "modwt_fw_levels",
+           "modwt_fw_levels_plain", "modwt_inv_levels",
+           "modwt_inv_levels_plain", "modwt_fw", "modwt_fw_plain",
+           "modwt_inv", "modwt_inv_plain", "modwt", "imodwt"]
 
-LAUNCHES = {"modwt_fw_levels": 0, "modwt_fw": 0, "modwt_inv": 0}
-PLAIN_CALLS = {"modwt_fw_levels": 0, "modwt_fw": 0, "modwt_inv": 0}
+LAUNCHES = {"modwt_fw_levels": 0, "modwt_inv_levels": 0, "modwt_fw": 0,
+            "modwt_inv": 0}
+PLAIN_CALLS = {"modwt_fw_levels": 0, "modwt_inv_levels": 0, "modwt_fw": 0,
+               "modwt_inv": 0}
 
 SMS = 132              # streaming multiprocessors of the H100
 MAX_CLUSTER = 8        # blocks per row: the portable cluster size
@@ -102,6 +108,18 @@ def modwt_plan(N: int, L: int, taps: int, dtype, B: int = 1) -> ModwtPlan:
     while 2 * plan.cluster in sizes and B * 2 * plan.cluster <= SMS:
         plan = sizes[2 * plan.cluster]
     return plan
+
+
+def modwt_inv_plan(N: int, L: int, taps: int, dtype, B: int = 1) -> ModwtPlan:
+    """The launch plan of :func:`modwt_inv_levels` for ``B`` rows of ``N``
+    samples through ``L`` levels: :func:`modwt_plan`'s, a pure function of
+    its arguments.  The inverse's shared layout is the forward's byte for
+    byte (csrc/modwt1d.cu, ModwtGeom): two scaling buffers of H + R
+    samples (the block's v_j, then v_j's halo of level j's reach; the free
+    buffer's tail holds w_j's halo) and a stage of R (L + 1) + E samples
+    (the block's span of the input, in its (t, j) layout), so the same
+    cluster fits the same rows."""
+    return modwt_plan(N, L, taps, dtype, B)
 
 
 def cluster_plan(P: int, N: int, L: int, taps: int,
@@ -186,6 +204,37 @@ def _plan_of(x, wt, L):
     return modwt_plan(N, L, len(modwt_filter_pair(wt)[0]), x.dtype, B)
 
 
+def _inv_levels_in(xw, out):
+    """``xw`` must be a ``(B, N, L+1)`` tensor (L >= 1) with rows of L+1
+    contiguous samples, any batch stride; ``out`` a ``(B, N)`` tensor of
+    its dtype and device with unit element stride (allocated when None)."""
+    if not isinstance(xw, torch.Tensor) or xw.dim() != 3 or xw.shape[2] < 2:
+        raise ValueError("xw must be a (B, N, L+1) tensor with L >= 1")
+    B, N, L1 = xw.shape
+    _check_rows(xw[..., 0], "xw")
+    check_levels(N, L1 - 1)
+    if not _inv_layout(xw):
+        raise ValueError("xw needs rows of L+1 contiguous samples")
+    if out is None:
+        return torch.empty((B, N), dtype=xw.dtype, device=xw.device)
+    _check_rows(out, "out", (B, N), xw.dtype, xw.device)
+    if N > 1 and out.stride(1) != 1:
+        raise ValueError("out needs a unit element stride")
+    return out
+
+
+def _inv_layout(xw):
+    """Does ``xw (B, N, L+1)`` hold rows of L+1 contiguous samples?"""
+    return xw.shape[1] == 1 or (xw.stride(2) == 1
+                                and xw.stride(1) == xw.shape[2])
+
+
+def _inv_plan_of(xw, wt):
+    B, N, L1 = xw.shape
+    return modwt_inv_plan(N, L1 - 1, len(modwt_filter_pair(wt)[0]),
+                          xw.dtype, B)
+
+
 # --- plain versions ----------------------------------------------------------
 
 def _step(v, wt, j):
@@ -228,6 +277,23 @@ def modwt_inv_plain(v1, w1, wt, j: int, out=None):
     PLAIN_CALLS["modwt_inv"] += 1
     a = acc_dtype(v1.dtype)
     out.copy_(imodwt_step(v1.to(a), w1.to(a), j, h, g))
+    return out
+
+
+def modwt_inv_levels_plain(xw, wt, out=None):
+    """Plain PyTorch version of :func:`modwt_inv_levels`: the chain of
+    :func:`modwt_inv_plain` levels from ``(B, N, L+1)``, each scaling band
+    rounded to the storage type between levels (without the plan's size
+    limit)."""
+    out = _inv_levels_in(xw, out)
+    PLAIN_CALLS["modwt_inv_levels"] += 1
+    g, h = modwt_filter_pair(wt)
+    a = acc_dtype(xw.dtype)
+    L = xw.shape[2] - 1
+    v = xw[..., L]
+    for j in range(L, 0, -1):
+        v = imodwt_step(v.to(a), xw[..., j - 1].to(a), j, h, g).to(xw.dtype)
+    out.copy_(v)
     return out
 
 
@@ -281,6 +347,16 @@ def _launch_levels(x, wt, L, out, stream, plan=None):
         stream), "modwt_fw_levels")
 
 
+def _launch_inv_levels(xw, wt, out, stream, plan=None):
+    taps = _taps(wt, xw.dtype, xw.device)
+    B, N, L1 = xw.shape
+    plan = plan or _inv_plan_of(xw, wt)
+    build.check(build.library().wtt_modwt_inv_levels(
+        build.dtype_code(xw.dtype), B, N, L1 - 1, xw.data_ptr(), xw.stride(0),
+        out.data_ptr(), out.stride(0), taps.data_ptr(), taps.numel() // 2,
+        *_plan_args(plan), stream), "modwt_inv_levels")
+
+
 def modwt_fw_levels(x, wt, L: int, out=None):
     """Levels 1..L of ``x (B, N)`` (any strides) in one launch -> ``out``
     ``(B, N, L+1)``, rows of L+1 contiguous samples (allocated when None),
@@ -299,6 +375,28 @@ def modwt_fw_levels(x, wt, L: int, out=None):
             _launch_levels(x, wt, L, out,
                            torch.cuda.current_stream().cuda_stream)
         LAUNCHES["modwt_fw_levels"] += 1
+    return out
+
+
+def modwt_inv_levels(xw, wt, out=None):
+    """All L levels of the inverse of ``xw (B, N, L+1)`` (rows of L+1
+    contiguous samples, any batch stride) in one launch -> ``out (B, N)``
+    (unit element stride; allocated when None), which may not overlap
+    ``xw``.  Raises for rows that :func:`modwt_inv_plan` does not fit;
+    :func:`imodwt` runs those one level at a time.  Returns ``out``."""
+    out = _inv_levels_in(xw, out)
+    _check_disjoint((xw,), (out,), "modwt_inv_levels")
+    if not _inv_plan_of(xw, wt).fits:
+        raise ValueError(f"modwt_inv_levels: rows of {xw.shape[1]} "
+                         f"{xw.dtype} through {xw.shape[2] - 1} levels fit "
+                         "no cluster (modwt_inv_plan)")
+    if xw.device.type == "cpu":
+        return modwt_inv_levels_plain(xw, wt, out)
+    if xw.numel():
+        with torch.cuda.device(xw.device):
+            _launch_inv_levels(xw, wt, out,
+                               torch.cuda.current_stream().cuda_stream)
+        LAUNCHES["modwt_inv_levels"] += 1
     return out
 
 
@@ -359,14 +457,21 @@ def modwt(x, wt, L: int, *, plain: bool = False):
 
 
 def imodwt(xw, wt, *, plain: bool = False):
-    """Inverse of :func:`modwt`: ``xw (B, N, L+1)`` -> ``(B, N)``; one M
-    launch per level, reading each column in place."""
+    """Inverse of :func:`modwt`: ``xw (B, N, L+1)`` -> ``(B, N)``.  Rows of
+    L+1 contiguous samples that :func:`modwt_inv_plan` fits (with 2^L <=
+    N) take one :func:`modwt_inv_levels` launch; others one M launch per
+    level, reading each column in place, the scaling bands taking turns
+    in two scratch rows.  ``plain=True`` runs the plain versions on any
+    device."""
     B, N, L1 = xw.shape
     L = L1 - 1
-    inv = modwt_inv_plain if plain else modwt_inv
     out = torch.empty((B, N), dtype=xw.dtype, device=xw.device)
     if L == 0:
         return out.copy_(xw[..., 0])
+    if 2 ** L <= N and _inv_layout(xw) and _inv_plan_of(xw, wt).fits:
+        levels = modwt_inv_levels_plain if plain else modwt_inv_levels
+        return levels(xw, wt, out)
+    inv = modwt_inv_plain if plain else modwt_inv
     scratch = Scratch(xw, (B * N, B * N))
     v = xw[..., L]
     for j in range(L, 0, -1):

@@ -199,13 +199,18 @@ def _outs(x, outs):
 def stage2_fw_plain(x, wt, outs=None):
     """Plain PyTorch version of :func:`stage2_fw` (same outputs, same
     layout): two levels of index_select gathers in the arithmetic type,
-    LL1 rounded to the storage type in between."""
+    LL1 rounded to the storage type in between.  In bfloat16 each level
+    sums as kernel A does (``quads_fw(..., fused=True)``: one fma per tap
+    in table order, the row pass then the column pass), so that LL1
+    rounds to bfloat16 from the float32 value that the kernel rounds;
+    float32 and float64 sum each tap's product."""
     _check_input(x)
     outs = _outs(x, outs)
     PLAIN_CALLS["stage2_fw"] += 1
     acc = acc_dtype(x.dtype)
-    ll1, *details1 = quads_fw(x.to(acc), wt)
-    ll2, *details2 = quads_fw(ll1.to(x.dtype).to(acc), wt)
+    fused = x.dtype == torch.bfloat16
+    ll1, *details1 = quads_fw(x.to(acc), wt, fused)
+    ll2, *details2 = quads_fw(ll1.to(x.dtype).to(acc), wt, fused)
     for o, v in zip(outs, (ll2, *details1, *details2)):
         o.copy_(v)
     return outs
