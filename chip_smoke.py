@@ -45,7 +45,16 @@ exits non-zero:
                   8 and 16, the first form: cdf97, db4, coif4, db10) on
                   contiguous planes and on the 3-D driver's permuted
                   planes with a corner whose width is no whole 16-byte
-                  word, on both staging paths, Rh = 1 and narrow C.
+                  word, on both staging paths, Rh = 1 and narrow C.  I's
+                  forms (windows of 16 and 8: cdf97, haar, db4) bit for
+                  bit: the tiled form (a size bound of 0 pairs) against
+                  the first form (a bound above the level) over NaN-filled
+                  outputs, in three dtypes, on the 3-D driver's views, a
+                  ragged C, a view one element in (the 4-byte path), R =
+                  2, small levels (smaller items), 4100 batch items of 3
+                  columns (several to a strip) and a level of full items;
+                  in halo mode with random halos, and with the wrapped
+                  rows, equal to the periodic tiled level bit for bit.
   2d. kernelsmodwt -- the MODWT kernels (forward K, inverse M) the same
                   way for four filter wavelets (db4, haar, sym6, coif8: the
                   8-, 16- and 32-tap templates),
@@ -162,12 +171,14 @@ exits non-zero:
                   of the 16384 rows of 16384 (cdf97, db4) and of one
                   shard's 4096 rows, and modwt_fw_levels at (512, 8192) db4 L6 (f32 and bf16, and
                   f32 with each cluster size that fits) beside the chain of
-                  K launches and the library calls; kernels J and E at
+                  K launches and the library calls; kernels J, E and I at
                   their paths' level-1 shapes (J at 16384^2, in halo mode
                   at one shard's (4096, 16384), at 256^3; E at 2^24 and
-                  over the 16384 rows of 16384, cdf97 and db4), by
-                  profiler time and CUDA events; kernel E's two forms by
-                  level size, which set its size bound; kernel N at
+                  over the 16384 rows of 16384, cdf97 and db4; I at
+                  16384^2, in halo mode at one shard's level, at 256^3,
+                  each in both forms), by profiler time and CUDA events;
+                  kernel E's and kernel I's two forms by level size,
+                  which set their size bounds; kernel N at
                   16384^2 levels 1-2 in both forms beside the two A
                   launches it replaces (and in bf16, and for db4), kernel
                   H at (4096, 4096) db4 L8 in both forms beside a chain of
@@ -176,11 +187,12 @@ exits non-zero:
                   conv1d calls, and G's forms by size; modwt_inv_levels at
                   (512, 8192) db4 L6 (f32 and bf16) beside the six M
                   launches it replaces and six dilated conv1d calls.
-  5d. forms    -- which form of E, J, J in halo mode, N, G and H each
-                  wavelet launches, read from the card by the profiler:
-                  the tiled (N: strip, G and H: staged) form below a span of 16
-                  (E: also from FW1D_MIN_PAIRS output pairs a level), the
-                  first form otherwise.  It runs
+  5d. forms    -- which form of E, I, I and J in halo mode, J, N, G and
+                  H each wavelet launches, read from the card by the
+                  profiler: the tiled (N: strip, G and H: staged) form
+                  below a span of 16 (E, I: also from FW1D_MIN_PAIRS /
+                  FW_A0_MIN_PAIRS output pairs a level), the first form
+                  otherwise.  It runs
                   after the traces: with these short profiler sessions in
                   phase 2, every later trace lost one launch.
 
@@ -1229,6 +1241,96 @@ def check_inv_a0(dev, rng, worst):
     return cases
 
 
+def check_fw_a0(dev, rng, worst):
+    """Kernel I's two forms, bit for bit: the tiled form (launched with a
+    size bound of 0 pairs) against the first form (a bound above every
+    level) over NaN-filled outputs, and against the plain version within
+    TOL; cdf97 (window 16), haar (8) and db4 (16, the descending detail
+    band) in three dtypes.  Levels: the 3-D driver's views (x its scratch
+    as (m, d, n), a and d the halves of a wider packed volume), a strip
+    cut short (C = 160 and 40), a view one element in and one column
+    narrower (the 4-byte staging path, element stores),
+    R = 2, small levels that take smaller items (8 output pairs) and
+    narrow C with many batch items, and one big enough for full items.
+    In halo mode: random halos (strided, taller than the reach), and the
+    wrapped rows as halos, which must equal the periodic tiled level bit
+    for bit."""
+    cases = 0
+    nan = float("nan")
+    stream = torch.cuda.current_stream().cuda_stream
+    shapes = ((1, 2, 1), (3, 2, 5), (5, 4, 40), (3, 96, 160), (64, 16, 12),
+              (4100, 8, 3), (2, 4096, 512))
+
+    def forms(x, a, d, halos=None):
+        got = []
+        for bound in (0, 1 << 40):
+            a.fill_(nan)
+            d.fill_(nan)
+            axis0._launch_fw(x, wt, a, d, halos, stream, bound)
+            torch.cuda.synchronize()
+            got.append((a.clone(), d.clone()))
+        (ta, td), (fa, fd) = got
+        require(torch.equal(ta, fa) and torch.equal(td, fd),
+                f"I's tiled form equals its first form bit for bit: {wname} "
+                f"{tuple(x.shape)} {dt} halos={halos is not None}")
+        return ta, td
+
+    for (wname, kind) in WAVELETS:
+        wt = wavelet(wname, kind)
+        fa_, fb_ = axis0.halo_reach(wt, False)
+        for dt, tol in TOL.items():
+            for B, R, C in shapes:
+                errs = {}
+                Rh = R // 2
+                x = torch.from_numpy(rng.standard_normal((B, R, C))).to(
+                    dev).to(dt)
+                a, d = torch.empty((2, B, Rh, C), dtype=dt, device=dev)
+                ra, rd = axis0.axis0_fw_plain(x, wt)
+                ta, td = forms(x, a, d)
+                errs["axis0_fw_tiled"] = max(rel_err(ta, ra), rel_err(td, rd))
+                # the 3-D driver: x a (R, B, C) scratch, the outputs the
+                # halves of a packed volume wider than C
+                s = torch.from_numpy(rng.standard_normal((R, B, C))).to(
+                    dev).to(dt)
+                y = torch.full((R, B + 1, C + 8), nan, dtype=dt, device=dev)
+                pa = y[:Rh, :B, :C].permute(1, 0, 2)
+                pd = y[Rh:, :B, :C].permute(1, 0, 2)
+                xs = s.permute(1, 0, 2)
+                ra, rd = axis0.axis0_fw_plain(xs, wt)
+                ta, td = forms(xs, pa, pd)
+                errs["axis0_fw_tiled_3d"] = max(rel_err(ta, ra),
+                                                rel_err(td, rd))
+                # the 4-byte path: x one element in, ragged C - 1 wide,
+                # the planes one element in (element stores)
+                x4 = torch.from_numpy(rng.standard_normal(B * R * C + 1)).to(
+                    dev).to(dt)[1:].view(B, R, C)[:, :, :max(C - 1, 1)]
+                C4 = x4.shape[2]
+                buf = torch.full((2 * B * Rh * C4 + 1,), nan, dtype=dt,
+                                 device=dev)
+                a4 = buf[1:1 + B * Rh * C4].view(B, Rh, C4)
+                d4 = buf[1 + B * Rh * C4:].view(B, Rh, C4)
+                ra, rd = axis0.axis0_fw_plain(x4, wt)
+                ta, td = forms(x4, a4, d4)
+                errs["axis0_fw_tiled_4byte"] = max(rel_err(ta, ra),
+                                                   rel_err(td, rd))
+                # halo mode: random strided halos, then the wrapped rows
+                above = strided(rng, (B, fa_ + 2, C), dt, dev)
+                below = strided(rng, (B, fb_ + 1, C), dt, dev)
+                ra, rd = axis0.axis0_fw_plain(x, wt, above=above, below=below)
+                ta, td = forms(x, a, d, (above, below))
+                errs["axis0_fw_halo_tiled"] = max(rel_err(ta, ra),
+                                                  rel_err(td, rd))
+                if R >= max(fa_, fb_):
+                    pa_, pd_ = forms(x, a, d)
+                    ha, hd = forms(x, a, d, (x[:, R - fa_:], x[:, :fb_]))
+                    require(torch.equal(ha, pa_) and torch.equal(hd, pd_),
+                            f"I in halo mode with wrapped halos equals the "
+                            f"periodic tiled level: {wname} {(B, R, C)} {dt}")
+                check_all("kernels3d", errs, (wname, B, R, C), dt, tol, worst)
+                cases += 1
+    return cases
+
+
 def phase_kernels3d(dev):
     rng = np.random.default_rng(3)
     worst = {}
@@ -1263,6 +1365,7 @@ def phase_kernels3d(dev):
                           worst)
                 cases += 1
     cases += check_inv_a0(dev, rng, worst)
+    cases += check_fw_a0(dev, rng, worst)
     emit({"phase": "kernels3d", "cases": cases,
           "shapes": [list(r) for r in SHAPES_A0],
           "tolerance": {str(k)[6:]: v for k, v in TOL.items()},
@@ -2219,15 +2322,23 @@ def tail_times(x, rows):
 
 
 def j_e_times(x, xs):
-    """Kernels J and E at their paths' level-1 shapes, by profiler time
+    """Kernels J, E and I at their paths' level-1 shapes, by profiler time
     (device us per call) and CUDA events (ms): J at 16384^2 (the split
     inverse's call: the packed level's halves into a scratch), J in halo
     mode at one shard's level (4096, 16384) with the wrapped rows as
     halos, J at level 1 of the 256^3 volume (the 3-D inverse's layout),
     E at level 1 of the 2^24 signal and over the 16384 rows of 16384
-    (cdf97 and db4, the split forward's call: [s | d] per row)."""
+    (cdf97 and db4, the split forward's call: [s | d] per row); I in both
+    forms (``_first``: launched with a size bound above the level) at
+    16384^2 (the split forward's call: down the row pass's scratch into
+    the packed level's halves; cdf97, and db4 in the tiled form), in halo
+    mode at one shard's level with the wrapped rows as halos, and at
+    level 1 of the 256^3 volume (the 3-D forward's layout), there also
+    in bf16."""
     cdf, db4 = w.wavelet(w.wt.cdf97, "lifting"), wavelet("db4", "filter")
     out, h = {}, SIZE // 2
+    stream = torch.cuda.current_stream().cuda_stream
+    first = 1 << 40
 
     def timed(tag, fn, xt):
         fn()
@@ -2262,9 +2373,78 @@ def j_e_times(x, xs):
     for tag, wt in (("cdf97", cdf), ("db4", db4)):
         timed(f"E_16384x16384_{tag}", lambda: level1d.level1d_fw(
             x, wt, sc[0, :, :h], sc[0, :, h:]), x)
-    del sc
+    # I: the split forward's column pass, sc (the row pass's [s | d]) into
+    # the halves of y
+    yo = torch.empty_like(y)
+    for tag, bound in (("", None), ("_first", first)):
+        timed(f"I_16384x16384_level1{tag}", lambda: axis0._launch_fw(
+            sc, cdf, yo[:, :h], yo[:, h:], None, stream, bound), y)
+    timed("I_16384x16384_db4", lambda: axis0.axis0_fw(
+        sc, db4, yo[:, :h], yo[:, h:]), y)
+    fa, fb = axis0.halo_reach(cdf, False)
+    xh = sc[:, :rows_]
+    ha = (xh[:, rows_ - fa:], xh[:, :fb])
+    for tag, bound in (("", None), ("_first", first)):
+        timed(f"I_halo_4096x16384{tag}", lambda: axis0._launch_fw(
+            xh, cdf, yo[:, :rows_ // 2], yo[:, h:h + rows_ // 2], ha, stream,
+            bound), xh)
+    del sc, yo
+    s3 = torch.empty_like(x3)
+    for dt in (torch.float32, torch.bfloat16):
+        x3t, s3t = x3.to(dt), s3.to(dt)
+        pa, pd = dwt3d._rows(s3t[: D // 2]), dwt3d._rows(s3t[D // 2:])
+        for tag, bound in (("", None), ("_first", first)):
+            if dt == torch.bfloat16 and bound:
+                continue
+            dtag = "_bf16" if dt == torch.bfloat16 else ""
+            timed(f"I_256cubed_level1{tag}{dtag}", lambda: axis0._launch_fw(
+                dwt3d._rows(x3t), cdf, pa, pd, None, stream, bound), x3t)
+    del s3, x3t, s3t
     torch.cuda.empty_cache()
     return out
+
+
+def i_form_times(dev):
+    """Kernel I's two forms by level size, device us per call from the
+    profiler: the tiled form (launched with a size bound of 0 pairs) and
+    the first form (a bound above every level) over square levels (1, n,
+    n), n = 64 to 4096 (the split forward's deep levels: 2^11 to 2^23
+    output pairs), and cubes (n, n, n), n = 16 to 128, in the 3-D
+    driver's layout (its deep levels), cdf97 (window 16) and haar
+    (window 8), f32; each the less of two readings, taken tiled, first,
+    tiled, first.  ``crossover_pairs`` gives, for each series, the
+    smallest size of the sweep from which the tiled form is no slower at
+    that size and every larger one (None: slower at the largest), beside
+    the bound the wrapper uses (axis0.FW_A0_MIN_PAIRS)."""
+    rng = np.random.default_rng(11)
+    stream = torch.cuda.current_stream().cuda_stream
+    out, cross = {}, {}
+    for wname, kind in (("cdf97", "lifting"), ("haar", "lifting")):
+        wt = wavelet(wname, kind)
+        for shape in ("square", "cube"):
+            series = []
+            sizes = (64, 128, 256, 512, 1024, 2048, 4096) if shape == \
+                "square" else (16, 32, 64, 128)
+            for n in sizes:
+                v = torch.from_numpy(rng.standard_normal(
+                    (n, n) if shape == "square" else (n, n, n)).astype(
+                    np.float32)).to(dev)
+                xv = v[None] if shape == "square" else dwt3d._rows(v)
+                B, R, C = xv.shape
+                a, d = axis0.axis0_fw_plain(xv, wt)
+                us = [device_us(lambda: axis0._launch_fw(
+                    xv, wt, a, d, None, stream, bound))
+                    for bound in (0, 1 << 40, 0, 1 << 40)]
+                series.append([B * (R // 2) * C, min(us[0::2]),
+                               min(us[1::2])])
+            at = len(series)
+            while at and series[at - 1][1] <= series[at - 1][2]:
+                at -= 1
+            tag = f"{wname}_{shape}"
+            out[tag] = series
+            cross[tag] = series[at][0] if at < len(series) else None
+    return {"pairs_tiled_us_first_us": out, "crossover_pairs": cross,
+            "FW_A0_MIN_PAIRS": axis0.FW_A0_MIN_PAIRS}
 
 
 def e_form_times(dev):
@@ -2308,12 +2488,18 @@ def e_form_times(dev):
 
 
 def phase_forms(dev):
-    """Phase 5d: which form of kernels E, J, N and H each wavelet launches,
-    read from the card (the kernel's name in a profiler trace), against
-    what the C selectors should pick.  E (FW1D_WAVELETS) on one 2^20 row, the
-    tiled form for a window (cdf97, haar, db4), the first form otherwise
-    (sym5, db10), and on (3, 4096), below FW1D_MIN_PAIRS, the first form
-    for every wavelet (the tiled one with a bound of 0 pairs); J
+    """Phase 5d: which form of kernels E, I, J, N, G and H each wavelet
+    launches, read from the card (the kernel's name in a profiler trace),
+    against what the C selectors should pick.  E (FW1D_WAVELETS) on one
+    2^20 row, the tiled form for a window (cdf97, haar, db4), the first
+    form otherwise (sym5, db10), and on (3, 4096), below FW1D_MIN_PAIRS,
+    the first form for every wavelet (the tiled one with a bound of 0
+    pairs); I (FW1D_WAVELETS) the same way on a (2, 2048, 512) level,
+    of FW_A0_MIN_PAIRS output pairs (the first form with a bound above
+    the level), and on (3, 96, 160), below it (the tiled form with a
+    bound of 0 pairs); I in halo mode (WAVELETS_HALO and db10) on a (2,
+    1024, 1024) level with its wrapped rows as halos, which must equal
+    the periodic I bit for bit; J
     (INV_A0_WAVELETS) on a (2, 1024, 512) level, the tiled form for
     cdf97, db4 and coif4, the first for db10; J in halo mode
     (WAVELETS_HALO and db10) on a (2, 48, 160) level with its wrapped
@@ -2347,6 +2533,37 @@ def phase_forms(dev):
                 forms[f"E {wname} {(B, n)} bound 0"] = require_form(
                     lambda: level1d._launch_fw(x, wt, s, d, stream, 0),
                     tiled_name, f"E {wname} {(B, n)} with a bound of 0")
+    first, tiled_name = "axis0_fw_kernel", "axis0_fw_tiled_kernel"
+    for (wname, kind) in FW1D_WAVELETS:
+        wt = wavelet(wname, kind)
+        tiled = bool(axis0.fw_window(wt))
+        for B, R, C in ((2, 2048, 512), (3, 96, 160)):
+            xi = randn(B, R, C)
+            a, d = axis0.axis0_fw(xi, wt)
+            big = B * (R // 2) * C >= axis0.FW_A0_MIN_PAIRS
+            tag = f"I {wname} {(B, R, C)}"
+            forms[tag] = require_form(
+                lambda: axis0.axis0_fw(xi, wt, a, d),
+                tiled_name if tiled and big else first, tag)
+            bound = 1 << 40 if big else 0
+            forms[f"{tag} bound {bound}"] = require_form(
+                lambda: axis0._launch_fw(xi, wt, a, d, None, stream, bound),
+                first if big or not tiled else tiled_name,
+                f"{tag} with a bound of {bound} pairs")
+    for (wname, kind) in WAVELETS_HALO + (("db10", "filter"),):
+        wt = wavelet(wname, kind)
+        fa, fb = axis0.halo_reach(wt, False)
+        xi = randn(2, 1024, 1024)
+        a, d = axis0.axis0_fw(xi, wt)
+        forms[f"I-halo {wname}"] = require_form(
+            lambda: axis0.axis0_fw(xi, wt, above=xi[:, 1024 - fa:],
+                                   below=xi[:, :fb]),
+            tiled_name if axis0.fw_window(wt) else first, f"I-halo {wname}")
+        ah, dh = axis0.axis0_fw(xi, wt, above=xi[:, 1024 - fa:],
+                                below=xi[:, :fb])
+        require(torch.equal(ah, a) and torch.equal(dh, d),
+                f"halo fw with wrapped halos equals the periodic kernel: "
+                f"{wname} (2, 1024, 1024)")
     for (wname, kind) in INV_A0_WAVELETS:
         wt = wavelet(wname, kind)
         a, d = randn(2, 1024, 512), randn(2, 1024, 512)
@@ -2447,6 +2664,11 @@ def profiled_times(x, xs, rows):
     je = j_e_times(x, xs)
     rows["axis0_inv"]["device_us"] = je["J_256cubed_level1"]["device_us"]
     rows["axis0_inv_halo"]["device_us"] = je["J_halo_4096x16384"]["device_us"]
+    for name, tag in (("axis0_fw", "I_256cubed_level1"),
+                      ("axis0_fw_halo", "I_halo_4096x16384")):
+        rows[name]["device_us"] = je[tag]["device_us"]
+        rows[name]["first_form_ms"] = je[tag + "_first"]["ms"]
+        rows[name]["first_form_device_us"] = je[tag + "_first"]["device_us"]
     rows["level1d_fw"]["device_us"] = je["E_2e24_level1"]["device_us"]
     xm, L = xs[MODWT_SHAPE], MODWT_LEVELS
     B, N = xm.shape
@@ -2487,6 +2709,7 @@ def profiled_times(x, xs, rows):
           "level1d_inv_level1_device_us": f_us,
           "j_e_level1": je,
           "e_forms_by_size": e_form_times(x.device),
+          "i_forms_by_size": i_form_times(x.device),
           "modwt_fw_levels_512x8192_L6": {
               "f32_device_us": r["device_us"], "bf16_device_us": bf16_us,
               "chain_device_us": r["chain_device_us"],
@@ -3258,7 +3481,8 @@ def main():
                   "modwt_inv_levels": "cluster", "level_fw": "tiled",
                   "level_inv": "tiled", "level1d_fw": "tiled",
                   "level1d_inv": "tiled", "axis0_inv": "tiled",
-                  "axis0_inv_halo": "tiled", "stage2_fw": "strips",
+                  "axis0_inv_halo": "tiled", "axis0_fw": "tiled",
+                  "axis0_fw_halo": "tiled", "stage2_fw": "strips",
                   "tail1d_fw": "staged", "tail1d_inv": "staged"}
     # the TPU kernels that a route of phase 3g runs on a kernel above: its
     # name, the kernel, the row of measurements, the TPU kernel, and its

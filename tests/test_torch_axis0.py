@@ -351,3 +351,207 @@ def test_inverse_walk_on_the_3d_drivers_views_with_a_corner(name, kind):
     assert (writes == 1).all()
     ref = axis0.axis0_inv_plain(a, d, wt, corner=corner).numpy()
     assert np.abs(out - ref).max() <= 1e-12 * max(1.0, np.abs(ref).max())
+
+
+# --- kernel I's forms: window, shared bytes, staging path, work items ------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+@pytest.mark.parametrize("name, kind, window", [
+    ("haar", "lifting", 8), ("db2", "filter", 8), ("cdf97", "lifting", 16),
+    ("db4", "filter", 16), ("coif4", "filter", 0), ("db10", "filter", 0)])
+def test_forward_window_and_shared_bytes(name, kind, window, dtype):
+    """Kernel I's form for a wavelet: the tiled kernel's window (8 or 16
+    offsets, above the analysis bands' span) or 0, the first form, for a
+    span of 16 or more; and one block's shared bytes, worked out from the
+    bands: the tiled form's two stages, each the 2 x 32 - 1 + span rows of
+    x that 32 output pairs read, 32 groups of 16 bytes of the arithmetic
+    type wide, in the storage type; the first form's window of 2 x 32 +
+    span rows of 32 lanes in the arithmetic type; the band table beside
+    either.  Two tiled blocks fit an SM's 227 KB.  A level below the
+    size bound takes the first form."""
+    wt = T.wavelet(T.wt.ALL_CLASSES[name], kind)
+    ds, _, dd, _ = axis0.level_bands(wt)
+    offs = np.concatenate([ds, dd])
+    span, taps = int(offs.max() - offs.min()), len(offs)
+    acc = 8 if dtype == torch.float64 else 4
+    size = torch.empty((), dtype=dtype).element_size()
+    table = taps * (acc + 4)
+    first = (2 * 32 + span) * 32 * acc + table
+    assert axis0.fw_window(wt) == window
+    assert (span < window) if window else span >= 16
+    if window:
+        want = 2 * (2 * 32 - 1 + span) * 32 * (16 // acc) * size + table
+        assert 2 * want <= 232448
+    else:
+        want = first
+    assert axis0.fw_smem(wt, dtype) == want
+    x = torch.zeros((2, 8, 16), dtype=dtype)
+    a = torch.zeros((2, 4, 16), dtype=dtype)
+    assert axis0.fw_plan(x, a, a, wt, min_pairs=0).smem == want
+    assert axis0.fw_plan(x, a, a, wt, min_pairs=0).window == window
+    small = axis0.fw_plan(x, a, a, wt, min_pairs=2 * 4 * 16 + 1)
+    assert small.window == 0 and small.smem == first
+    assert axis0.fw_plan(x, a, a, wt) == small     # below FW_A0_MIN_PAIRS
+    big = torch.zeros((1, 2, axis0.FW_A0_MIN_PAIRS), dtype=dtype)
+    assert axis0.fw_plan(big, big[:, :1], big[:, :1], wt).window == window
+    # the tiled kernel's order: the scaling band ascending, the detail
+    # band ascending (lifting) or descending (filter), never mixed
+    assert (np.diff(ds) > 0).all()
+    steps = np.sign(np.diff(dd))
+    assert len(set(steps)) <= 1 and (kind == "filter") == (steps[0] < 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+def test_forward_staging_path(dtype):
+    """I stages by 16-byte words where C and x have 16-byte bases and batch
+    and row strides of whole words; by 4 bytes otherwise: C cut by one
+    element, x one element in, x with gaps of no whole word.  The output
+    planes are checked apart for word stores (V columns): the 3-D
+    driver's permuted views take them where their widths are whole words,
+    a plane one element in does not."""
+    wt = T.wavelet(T.wt.cdf97, "lifting")
+    e = 16 // torch.empty((), dtype=dtype).element_size()
+    def plan_of(x, a, d):
+        return axis0.fw_plan(x, a, d, wt, min_pairs=0)
+
+    x = _aligned((3, 8, 4 * e), dtype)
+    a = _aligned((3, 4, 4 * e), dtype)
+    plan = plan_of(x, a, a)
+    assert (plan.staging, plan.wide_a, plan.wide_d) == (16, True, True)
+    cut = x[:, :, :-1]
+    assert plan_of(cut, a[:, :, :-1], a[:, :, :-1]).staging == 4
+    assert plan_of(_aligned((3, 8, 4 * e), dtype, 1), a, a).staging == 4
+    gaps = _aligned((3, 11, 4 * e + 7), dtype)[:, 1:9, 2:2 + 4 * e]
+    assert plan_of(gaps, a, a).staging == 4
+    # the 3-D driver (ops/dwt3d.py): x the scratch as (B = m, R = d, C =
+    # n), a and d the halves of a larger packed volume, same layout
+    s = _aligned((8, 6, 4 * e), dtype)
+    y = _aligned((16, 6, 4 * e + 8), dtype)
+    pa, pd = y[:4, :, :4 * e].permute(1, 0, 2), y[4:8, :, :4 * e].permute(
+        1, 0, 2)
+    plan = plan_of(s.permute(1, 0, 2), pa, pd)
+    assert (plan.staging, plan.wide_a, plan.wide_d) == (16, True, True)
+    one_in = _aligned((3, 4, 4 * e), dtype, 1)
+    plan = plan_of(x, a, one_in)
+    assert (plan.staging, plan.wide_a, plan.wide_d) == (16, True, False)
+
+
+def emulate_fw(x, wt, halos=None):
+    """numpy emulation of kernel I's tiled walk (csrc/axis0.cu) in float64,
+    with the geometry of :func:`axis0.fw_plan`: each work item stages the
+    2 tr - 1 + span rows of x of its strip and batch items as the kernel
+    lays them out (the periodic wrap, the halo views above and below),
+    each unit (output pair, batch item, V columns) sums each band's taps
+    from the staged rows only, one product per tap in table order (a
+    filter's detail band descending), and every write is counted.
+    Returns a, d and the count of writes of each output of either."""
+    B, R, C = x.shape
+    Rh = R // 2
+    out = torch.empty((B, Rh, C), dtype=x.dtype)
+    plan = axis0.fw_plan(x, out, out, wt, halos, min_pairs=0)
+    assert plan.window
+    ds, cs, dd, cd = axis0.level_bands(wt)
+    offs = np.concatenate([ds, dd])
+    dmin, span = int(offs.min()), int(offs.max() - offs.min())
+    v = 16 // (8 if x.dtype == torch.float64 else 4)
+    groups = 32
+    assert plan.tr in (8, 16, 32)
+    X = x.double().numpy()
+    H = [h.double().numpy() for h in halos] if halos else None
+    outs = np.full((2, B, Rh, C), np.nan)
+    writes = np.zeros((2, B, Rh, C), np.int64)
+    bpb = 1 << plan.bsh
+    assert plan.cw * bpb <= plan.ps * bpb <= groups * v     # a strip's room
+    for t in range(plan.items):
+        rest, ct = divmod(t, plan.ctiles)
+        c0, k0 = ct * plan.cw, (rest % plan.rtiles) * plan.tr
+        b0 = (rest // plan.rtiles) << plan.bsh
+        tr = min(plan.tr, Rh - k0)
+        rows, nb, cwl = 2 * tr - 1 + span, min(bpb, B - b0), min(plan.cw,
+                                                                 C - c0)
+        assert rows <= 2 * 32 - 1 + span                  # a stage's room
+        stg = np.full((rows, bpb, plan.ps), np.nan)
+        for i in range(rows):
+            r = 2 * k0 + dmin + i
+            for bl in range(nb):
+                b = b0 + bl
+                if H is not None and r < 0:
+                    row = H[0][b, H[0].shape[1] + r]
+                elif H is not None and r >= R:
+                    row = H[1][b, r - R]
+                else:
+                    row = X[b, r % R]
+                stg[i, bl, :cwl] = row[c0:c0 + cwl]
+        for r in range(tr):
+            for bl in range(nb):
+                for j0 in range(0, min(cwl, v << plan.gsh), v):
+                    cols = np.arange(j0, min(j0 + v, cwl))
+                    for p, (dl, cl) in enumerate(((ds, cs), (dd, cd))):
+                        acc = np.zeros(len(cols))
+                        for o, c in zip(dl, cl):
+                            acc = acc + c * stg[2 * r + o - dmin, bl, cols]
+                        outs[p, b0 + bl, k0 + r, c0 + cols] = acc
+                        writes[p, b0 + bl, k0 + r, c0 + cols] += 1
+    return outs[0], outs[1], writes
+
+
+# (case, x shape, JT_SPREAD): a spread of 1 keeps several batch items to a
+# strip at a size the emulation runs quickly
+_FW_WALKS = [("narrow C, batch items to a strip", (5, 8, 3), 1),
+             ("R = 2", (3, 2, 40), None),
+             ("ragged strip, small items", (2, 74, 150), None),
+             ("batch groups of unequal fill", (9, 6, 10), 1)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name, kind", [("cdf97", "lifting"),
+                                        ("db4", "filter")])
+@pytest.mark.parametrize("case, shape, spread", _FW_WALKS)
+def test_forward_walk_writes_each_output_once(case, shape, spread, name,
+                                              kind, dtype, monkeypatch):
+    """Kernel I's work items and units, emulated: every output written
+    exactly once, from staged rows only, equal to the plain version; the
+    narrow level (several batch items to a strip, the 3-D driver's deep
+    levels), R = 2 (the whole window wraps onto two rows), a strip cut at
+    a ragged C with a small level's items (8 output pairs) and batch
+    groups of unequal fill."""
+    if spread is not None:
+        monkeypatch.setattr(axis0, "_JT_SPREAD", spread)
+    wt = T.wavelet(T.wt.ALL_CLASSES[name], kind)
+    x = torch.from_numpy(np.random.default_rng(49).standard_normal(
+        shape)).to(dtype)
+    plan = axis0.fw_plan(x, x[:, ::2], x[:, ::2], wt, min_pairs=0)
+    if spread is not None:
+        assert plan.bsh > 0 and shape[0] % (1 << plan.bsh)
+    a, d, writes = emulate_fw(x, wt)
+    assert (writes == 1).all()
+    ra, rd = axis0.axis0_fw_plain(x.double(), wt)
+    for got, ref in ((a, ra.numpy()), (d, rd.numpy())):
+        assert np.abs(got - ref).max() <= 1e-12 * max(1.0, np.abs(ref).max())
+
+
+@pytest.mark.parametrize("name, kind", [("haar", "lifting"),
+                                        ("db4", "filter")])
+def test_forward_walk_on_the_3d_drivers_views(name, kind):
+    """The 3-D forward's call (ops/dwt3d.py): x the scratch of a sub-cube
+    viewed as (B = m, R = d, C = n), a and d the two halves of the packed
+    output's leading block in the same layout; planned on the 16-byte
+    staging path with word stores into both planes, emulated over 8- and
+    16-offset windows, against the plain version writing those views."""
+    wt = T.wavelet(T.wt.ALL_CLASSES[name], kind)
+    rng = np.random.default_rng(50)
+    s = torch.from_numpy(rng.standard_normal((12, 4, 20)))
+    x = s.permute(1, 0, 2)                                   # (4, 12, 20)
+    y = torch.full((16, 8, 24), float("nan"), dtype=torch.float64)
+    pa, pd = (y[:6, :4, :20].permute(1, 0, 2),
+              y[6:12, :4, :20].permute(1, 0, 2))             # (4, 6, 20)
+    plan = axis0.fw_plan(x, pa, pd, wt, min_pairs=0)
+    assert (plan.staging, plan.wide_a, plan.wide_d) == (16, True, True)
+    a, d, writes = emulate_fw(x, wt)
+    assert (writes == 1).all()
+    axis0.axis0_fw_plain(x, wt, pa, pd)
+    for got, ref in ((a, pa.numpy()), (d, pd.numpy())):
+        assert np.abs(got - ref).max() <= 1e-12 * max(1.0, np.abs(ref).max())
+    assert torch.isnan(y[12:]).all() and torch.isnan(y[:, 4:]).all()

@@ -247,3 +247,56 @@ def test_inverse_halo_walk(name, kind):
     wrapped = (a[:, Rh - ia:], a[:, :ib], d[:, Rh - ia:], d[:, :ib])
     assert np.array_equal(emulate_inv(a, d, wt, halos=wrapped)[0],
                           emulate_inv(a, d, wt)[0])
+
+
+def test_forward_halo_views_pick_the_staging_path():
+    """Kernel I in halo mode stages by 16-byte words only where the two
+    halo views too have 16-byte bases and strides of whole words: a
+    zero-row halo (haar's reach is 0 on both sides) counts like any other
+    view; a halo one element in, or cut from a wider array, takes 4
+    bytes."""
+    wt = T.wavelet(T.wt.cdf97, "lifting")
+    fa, fb = axis0.halo_reach(wt, False)
+    x, a = _aligned((2, 16, 16)), _aligned((2, 8, 16))
+    halos = (_aligned((2, fa, 16)), _aligned((2, fb, 16)))
+
+    def staging(wt, halos):
+        return axis0.fw_plan(x, a, a, wt, halos, min_pairs=0).staging
+
+    assert staging(wt, halos) == 16
+    assert staging(wt, (_aligned((2, fa, 16), 1), halos[1])) == 4
+    assert staging(wt, (halos[0],
+                        _aligned((2, fb + 2, 19))[:, 1:, 1:17])) == 4
+    haar = T.wavelet(T.wt.haar, "lifting")
+    assert axis0.halo_reach(haar, False) == (0, 0)
+    assert staging(haar, (_aligned((2, 0, 16)),) * 2) == 16
+
+
+@pytest.mark.parametrize("name, kind", [("cdf97", "lifting"),
+                                        ("db4", "filter")])
+def test_forward_halo_walk(name, kind):
+    """Kernel I's walk in halo mode, emulated (tests/test_torch_axis0.py,
+    emulate_fw): with random halos, taller than the reach and strided,
+    every output written once and equal to the plain version; with the
+    wrapped rows as halos, bit for bit the periodic walk."""
+    from test_torch_axis0 import emulate_fw
+    wt = T.wavelet(T.wt.ALL_CLASSES[name], kind)
+    fa, fb = axis0.halo_reach(wt, False)
+    rng = np.random.default_rng(85)
+    B, R, C = 2, 80, 12
+    x = torch.from_numpy(rng.standard_normal((B, R, C)))
+
+    def strided(h):
+        return torch.from_numpy(rng.standard_normal(
+            (B, h + 3, C + 5)))[:, 1:h + 1, 2:C + 2]
+
+    halos = (strided(fa + 1), strided(fb + 2))
+    a, d, writes = emulate_fw(x, wt, halos=halos)
+    assert (writes == 1).all()
+    ra, rd = axis0.axis0_fw_plain(x, wt, above=halos[0], below=halos[1])
+    for got, ref in ((a, ra.numpy()), (d, rd.numpy())):
+        assert np.abs(got - ref).max() <= 1e-12 * max(1.0, np.abs(ref).max())
+    wrapped = (x[:, R - fa:], x[:, :fb])
+    for got, ref in zip(emulate_fw(x, wt, halos=wrapped)[:2],
+                        emulate_fw(x, wt)[:2]):
+        assert np.array_equal(got, ref)

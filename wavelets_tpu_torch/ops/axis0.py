@@ -25,13 +25,15 @@ Both are driven by the wavelet's bands (ops/bands.py), as kernels A-H are;
 the plain versions are the 1-D passes of ops/level2d.py along dim -2 (in
 halo mode over ``[above; x; below]``, without a wrap).  They replace the
 TPU kernels of ``wavelets_tpu/ops/pallas/axis0.py``, the halo mode its
-``_ext`` variants (see csrc/axis0.cu).  The inverse runs on persistent
-blocks that stage work items (32 output pairs of a strip of columns of
-one or several batch items) with 16-byte copies, the next item's while
-this one's taps run, each staged row's source (wrap, halo, corner) picked
+``_ext`` variants (see csrc/axis0.cu).  Both run on persistent blocks
+that stage work items (32 output pairs of a strip of columns of one or
+several batch items) with 16-byte copies, the next item's while this
+one's taps run, each staged row's source (wrap, halo, corner) picked
 while staging, with the bands in registers as windows of 8 or 16 offsets
-(:func:`inv_window`); a span of 16 or more takes its first form, one
-block per tile.  :func:`inv_plan` and :func:`inv_smem` mirror its launch.
+(:func:`fw_window`, :func:`inv_window`); a span of 16 or more takes the
+first form, one block per tile, as does a forward level of fewer than
+``FW_A0_MIN_PAIRS`` output pairs.  :func:`fw_plan`, :func:`fw_smem`,
+:func:`inv_plan` and :func:`inv_smem` mirror their launches.
 A tensor on the CPU takes the plain PyTorch version
 (``axis0_fw_plain``, ``axis0_inv_plain``); a CUDA tensor launches the
 kernel or raises.  Arithmetic runs in float32 for float32 and bfloat16
@@ -47,14 +49,15 @@ from typing import NamedTuple
 import torch
 
 from . import build
-from .bands import acc_dtype, band_reach, band_table, syn_reach, \
-    synthesis_bands
+from .bands import acc_dtype, band_reach, band_table, level_bands, \
+    syn_reach, synthesis_bands
 from .level2d import _analysis, _check_disjoint, _check_input, _check_plane, \
     _synthesis
 
 __all__ = ["LAUNCHES", "PLAIN_CALLS", "axis0_fw", "axis0_fw_plain",
-           "axis0_inv", "axis0_inv_plain", "halo_reach", "inv_window",
-           "inv_smem", "inv_plan"]
+           "axis0_inv", "axis0_inv_plain", "halo_reach", "fw_window",
+           "fw_smem", "fw_plan", "inv_window", "inv_smem", "inv_plan",
+           "FW_A0_MIN_PAIRS"]
 
 # the halo mode counts apart from the periodic one
 LAUNCHES = {"axis0_fw": 0, "axis0_inv": 0, "axis0_fw_halo": 0,
@@ -62,12 +65,17 @@ LAUNCHES = {"axis0_fw": 0, "axis0_inv": 0, "axis0_fw_halo": 0,
 PLAIN_CALLS = {"axis0_fw": 0, "axis0_inv": 0, "axis0_fw_halo": 0,
                "axis0_inv_halo": 0}
 
-# kernel J (csrc/axis0.cu): the tiled form's window bounds, output pairs of
-# a work item and column groups of a strip; the first form's output pairs
-# and lanes per block
-INV_WINDOWS = (8, 16)
+# kernels I and J (csrc/axis0.cu): the tiled forms' window bounds, output
+# pairs of a work item and column groups of a strip; the first forms'
+# output pairs and lanes per block
+FW_WINDOWS = INV_WINDOWS = (8, 16)
 _JT_TR, _JT_MIN_TR, _JT_GROUPS, _JT_SPREAD = 32, 8, 32, 512
 _A0_TR, _A0_LANES = 32, 32
+# kernel I takes its first form for a level of fewer output pairs (B R/2 C)
+# than this: below it the size sweep of chip_smoke.py (i_form_times)
+# found the first form as fast or faster (levels of a few microseconds,
+# where the tiled form's fixed costs show), above it the tiled form faster
+FW_A0_MIN_PAIRS = 1 << 20
 
 
 @lru_cache(maxsize=None)
@@ -193,11 +201,46 @@ def _inv_halos(a, wt, corner, halos):
     return _check_halos(halos, a, halo_reach(wt, True), True)
 
 
-# --- kernel J's forms (mirrors of csrc/axis0.cu) ----------------------------
+# --- kernel I's and J's forms (mirrors of csrc/axis0.cu) --------------------
 
 def _syn_table(wt):
     offs = [int(o) for d, _ in synthesis_bands(wt) for o in d]
     return min(offs), max(offs) - min(offs), len(offs)
+
+
+def _ana_table(wt):
+    ds, _, dd, _ = level_bands(wt)
+    offs = [int(o) for o in ds] + [int(o) for o in dd]
+    return min(offs), max(offs) - min(offs), len(offs)
+
+
+def fw_window(wt) -> int:
+    """The window bound of kernel I's tiled form for ``wt``'s analysis
+    bands: the smallest of FW_WINDOWS above their span (both bands'
+    offsets fit it), or 0 where the span is 16 or more and the first form
+    runs.  csrc/axis0.cu (axis0_fw) makes the same choice, for the
+    periodic and the halo mode alike, as kernel E does for the same
+    bands."""
+    span = _ana_table(wt)[1]
+    return next((w for w in FW_WINDOWS if span < w), 0)
+
+
+def fw_smem(wt, dtype, tiled=True) -> int:
+    """Shared bytes of one block of kernel I in the form :func:`fw_window`
+    picks (the first form where ``tiled`` is false, as for a level below
+    ``FW_A0_MIN_PAIRS``); mirrors csrc/axis0.cu: the tiled form's two
+    stages, each the 2 JT_TR - 1 + span rows of x of a full item's window,
+    a strip (JT_GROUPS V columns) wide, whatever the shape
+    (fw_tiled_smem), or the first form's window of 2 A0_TR + span rows of
+    A0_LANES lanes in the arithmetic type; and the band table."""
+    _, span, taps = _ana_table(wt)
+    acc = acc_dtype(dtype).itemsize
+    table = taps * (acc + 4)
+    if not (tiled and fw_window(wt)):
+        return (2 * _A0_TR + span) * _A0_LANES * acc + table
+    size = torch.empty((), dtype=dtype).element_size()
+    strip = _JT_GROUPS * (16 // acc)
+    return 2 * (2 * _JT_TR - 1 + span) * strip * size + table
 
 
 def inv_window(wt) -> int:
@@ -244,6 +287,28 @@ class InvPlan(NamedTuple):
     smem: int = 0
 
 
+class FwPlan(NamedTuple):
+    """Kernel I's launch as csrc/axis0.cu (axis0_fw) plans it: the window
+    (0: the first form, no other field set), the staging path (16 or 4
+    bytes), whether each output plane takes word stores of V columns
+    (``wide_a``, ``wide_d``), and the tiled form's work items (FwA0Geom,
+    as in :class:`InvPlan`)."""
+    window: int
+    staging: int = 0
+    wide_a: bool = False
+    wide_d: bool = False
+    tr: int = 0
+    cw: int = 0
+    ctiles: int = 0
+    rtiles: int = 0
+    items: int = 0
+    bsh: int = 0
+    gsh: int = 0
+    ps: int = 0
+    lsh: int = 0
+    smem: int = 0
+
+
 def _ceil_log2(v):
     return (v - 1).bit_length()
 
@@ -251,6 +316,43 @@ def _ceil_log2(v):
 def _words16(t, e):
     return (t.data_ptr() % 16 == 0 and t.stride(0) % e == 0
             and t.stride(1) % e == 0)
+
+
+def _words_out(t):
+    """An output plane that takes a word store of V columns (csrc/axis0.cu
+    words_out): base and batch and row strides whole words of V
+    elements."""
+    v = 16 // acc_dtype(t.dtype).itemsize
+    return (t.data_ptr() % (v * t.element_size()) == 0
+            and t.stride(0) % v == 0 and t.stride(1) % v == 0)
+
+
+def _items(B, pairs, C, dtype, vec):
+    """The work items of a tiled form (csrc/axis0.cu a0_items): (tr, cw,
+    ctiles, rtiles, items, bsh, gsh, ps, lsh)."""
+    e = 16 // torch.empty((), dtype=dtype).element_size()
+    v = 16 // acc_dtype(dtype).itemsize
+    strip = _JT_GROUPS * v
+    cw = min(C, strip)
+    ps = -(-cw // e) * e
+    gsh = _ceil_log2(-(-cw // v))
+    bsh = 0
+    while ((2 << bsh) <= (_JT_GROUPS >> gsh) and (2 << bsh) * ps <= strip
+           and (1 << bsh) < B):
+        bsh += 1
+    ctiles = -(-C // cw)
+
+    def count(tr, bsh):
+        return ctiles * -(-pairs // tr) * -(-B // (1 << bsh))
+
+    tr = _JT_TR        # a small level: fewer batch items, then fewer pairs
+    while count(tr, bsh) < _JT_SPREAD and (bsh > 0 or tr > _JT_MIN_TR):
+        if bsh > 0:
+            bsh -= 1
+        else:
+            tr //= 2
+    return (tr, cw, ctiles, -(-pairs // tr), count(tr, bsh), bsh, gsh, ps,
+            min(_ceil_log2(ps // e if vec else ps), 8))
 
 
 def inv_plan(a, d, wt, corner=None, halos=None) -> InvPlan:
@@ -263,34 +365,32 @@ def inv_plan(a, d, wt, corner=None, halos=None) -> InvPlan:
     if not window:
         return InvPlan(0, smem=inv_smem(wt, a.dtype))
     B, Rh, C = a.shape
-    size = a.element_size()
-    e, v = 16 // size, 16 // acc_dtype(a.dtype).itemsize
-    strip = _JT_GROUPS * v
+    e = 16 // a.element_size()
     views = [a, d] + ([corner] if corner is not None and corner.numel()
                       else []) + list(halos or ())
     vec = C % e == 0 and all(_words16(t, e) for t in views)
-    cw = min(C, strip)
-    ps = -(-cw // e) * e
-    gsh = _ceil_log2(-(-cw // v))
-    bsh = 0
-    while ((2 << bsh) <= (_JT_GROUPS >> gsh) and (2 << bsh) * ps <= strip
-           and (1 << bsh) < B):
-        bsh += 1
-    ctiles = -(-C // cw)
+    return InvPlan(window, 16 if vec else 4,
+                   *_items(B, Rh, C, a.dtype, vec), inv_smem(wt, a.dtype))
 
-    def count(tr, bsh):
-        return ctiles * -(-Rh // tr) * -(-B // (1 << bsh))
 
-    tr = _JT_TR        # a small level: fewer batch items, then fewer pairs
-    while count(tr, bsh) < _JT_SPREAD and (bsh > 0 or tr > _JT_MIN_TR):
-        if bsh > 0:
-            bsh -= 1
-        else:
-            tr //= 2
-    return InvPlan(window, 16 if vec else 4, tr, cw, ctiles, -(-Rh // tr),
-                   count(tr, bsh), bsh, gsh, ps,
-                   min(_ceil_log2(ps // e if vec else ps), 8),
-                   inv_smem(wt, a.dtype))
+def fw_plan(x, a, d, wt, halos=None, min_pairs=None) -> FwPlan:
+    """How kernel I runs the level of ``x (B, R, C)`` into the planes ``a``
+    and ``d`` (with halos ``(above, below)``, as :func:`axis0_fw` takes
+    them): a pure function of their shapes, strides and data pointers,
+    mirroring csrc/axis0.cu.  A level of fewer than ``min_pairs`` output
+    pairs (default ``FW_A0_MIN_PAIRS``) takes the first form.  The 16-byte
+    staging path needs C and every view it reads (x, the halos) in whole
+    16-byte words (base, batch and row stride)."""
+    if min_pairs is None:
+        min_pairs = FW_A0_MIN_PAIRS
+    window = fw_window(wt)
+    B, R, C = x.shape
+    if not window or B * (R // 2) * C < min_pairs:
+        return FwPlan(0, smem=fw_smem(wt, x.dtype, tiled=False))
+    e = 16 // x.element_size()
+    vec = C % e == 0 and all(_words16(t, e) for t in [x, *(halos or ())])
+    return FwPlan(window, 16 if vec else 4, _words_out(a), _words_out(d),
+                  *_items(B, R // 2, C, x.dtype, vec), fw_smem(wt, x.dtype))
 
 
 # --- kernels -----------------------------------------------------------------
@@ -304,14 +404,20 @@ def _halo_args(halos):
             halos[0].shape[1])
 
 
-def _launch_fw(x, wt, a, d, halos, stream):
+def _launch_fw(x, wt, a, d, halos, stream, min_pairs=None):
+    """Launch kernel I; a level of fewer than ``min_pairs`` output pairs
+    (default ``FW_A0_MIN_PAIRS``) takes the first form, so 0 forces the
+    tiled form where the span allows it, and a bound above the level the
+    first form."""
+    if min_pairs is None:
+        min_pairs = FW_A0_MIN_PAIRS
     table = band_table(wt, False, x.dtype, x.device)
     B, R, C = x.shape
     head = (build.dtype_code(x.dtype), B, R, C, x.data_ptr(), x.stride(0),
             x.stride(1), a.data_ptr(), a.stride(0), a.stride(1), d.data_ptr(),
             d.stride(0), d.stride(1))
     tail = (table.offs.data_ptr(), table.coefs.data_ptr(), *table.counts,
-            table.dmin, table.span, stream)
+            table.dmin, table.span, min_pairs, stream)
     lib = build.library()
     if halos is None:
         build.check(lib.wtt_axis0_fw(*head, *tail), "axis0_fw")

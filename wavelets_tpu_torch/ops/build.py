@@ -83,13 +83,13 @@ _SIGNATURES = {
     "wtt_tail1d_inv": [_I, _I, _I, _I, _P, _L, _P, _L, _P, _P, _P, _I, _I,
                        _I, _P],
     # dtype, B, R, C, x, xsb, xsr, a, asb, asr, d, dsb, dsr, offs, coefs,
-    # ns, nd, dmin, span, stream
+    # ns, nd, dmin, span, min_pairs, stream
     "wtt_axis0_fw": [_I, _I, _I, _I, _P, _L, _L, _P, _L, _L, _P, _L, _L, _P,
-                     _P, _I, _I, _I, _I, _P],
+                     _P, _I, _I, _I, _I, _L, _P],
     # dtype, B, R, C, x, xsb, xsr, a, asb, asr, d, dsb, dsr, halos[2],
-    # hsb[], hsr[], ha, offs, coefs, ns, nd, dmin, span, stream
+    # hsb[], hsr[], ha, offs, coefs, ns, nd, dmin, span, min_pairs, stream
     "wtt_axis0_fw_halo": [_I, _I, _I, _I, _P, _L, _L, _P, _L, _L, _P, _L, _L,
-                          _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P],
+                          _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _L, _P],
     # dtype, B, Rh, C, a, asb, asr, d, dsb, dsr, corner, csb, csr, Bc, Cc,
     # x, xsb, xsr, offs, coefs, counts[], smin, span, stream
     "wtt_axis0_inv": [_I, _I, _I, _I, _P, _L, _L, _P, _L, _L, _P, _L, _L, _I,
