@@ -48,6 +48,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import tracing
 from . import build
 from .bands import acc_dtype, band_reach, band_table, level_bands, \
     syn_reach, synthesis_bands
@@ -418,24 +419,21 @@ def _launch_fw(x, wt, a, d, halos, stream, min_pairs=None):
             d.stride(0), d.stride(1))
     tail = (table.offs.data_ptr(), table.coefs.data_ptr(), *table.counts,
             table.dmin, table.span, min_pairs, stream)
-    lib = build.library()
     if halos is None:
-        build.check(lib.wtt_axis0_fw(*head, *tail), "axis0_fw")
+        build.launch("axis0_fw", *head, *tail)
     else:
-        build.check(lib.wtt_axis0_fw_halo(*head, *_halo_args(halos), *tail),
-                    "axis0_fw_halo")
+        build.launch("axis0_fw_halo", *head, *_halo_args(halos), *tail)
 
 
 def _launch_inv_halo(a, d, wt, halos, out, stream):
     table = band_table(wt, True, a.dtype, a.device)
     B, Rh, C = a.shape
-    build.check(build.library().wtt_axis0_inv_halo(
-        build.dtype_code(a.dtype), B, Rh, C, a.data_ptr(), a.stride(0),
-        a.stride(1), d.data_ptr(), d.stride(0), d.stride(1),
-        *_halo_args(halos), out.data_ptr(), out.stride(0), out.stride(1),
-        table.offs.data_ptr(), table.coefs.data_ptr(),
-        (ctypes.c_int * 4)(*table.counts), table.dmin, table.span, stream),
-        "axis0_inv_halo")
+    build.launch("axis0_inv_halo", build.dtype_code(a.dtype), B, Rh, C,
+                 a.data_ptr(), a.stride(0), a.stride(1), d.data_ptr(),
+                 d.stride(0), d.stride(1), *_halo_args(halos), out.data_ptr(),
+                 out.stride(0), out.stride(1), table.offs.data_ptr(),
+                 table.coefs.data_ptr(), (ctypes.c_int * 4)(*table.counts),
+                 table.dmin, table.span, stream)
 
 
 def _launch_inv(a, d, wt, out, corner, stream):
@@ -446,13 +444,13 @@ def _launch_inv(a, d, wt, out, corner, stream):
     else:
         cptr, csb, csr = corner.data_ptr(), corner.stride(0), corner.stride(1)
         Bc, Cc = corner.shape[0], corner.shape[2]
-    build.check(build.library().wtt_axis0_inv(
-        build.dtype_code(a.dtype), B, Rh, C, a.data_ptr(), a.stride(0),
-        a.stride(1), d.data_ptr(), d.stride(0), d.stride(1), cptr, csb, csr,
-        Bc, Cc, out.data_ptr(), out.stride(0), out.stride(1),
-        table.offs.data_ptr(), table.coefs.data_ptr(),
-        (ctypes.c_int * 4)(*table.counts), table.dmin, table.span, stream),
-        "axis0_inv")
+    build.launch("axis0_inv", build.dtype_code(a.dtype), B, Rh, C,
+                 a.data_ptr(), a.stride(0), a.stride(1), d.data_ptr(),
+                 d.stride(0), d.stride(1), cptr, csb, csr, Bc, Cc,
+                 out.data_ptr(), out.stride(0), out.stride(1),
+                 table.offs.data_ptr(), table.coefs.data_ptr(),
+                 (ctypes.c_int * 4)(*table.counts), table.dmin, table.span,
+                 stream)
 
 
 def axis0_fw(x, wt, a=None, d=None, *, above=None, below=None):
@@ -462,18 +460,20 @@ def axis0_fw(x, wt, a=None, d=None, *, above=None, below=None):
     (``(B, H, C)`` views covering :func:`halo_reach`) the level reads the
     rows beyond ``x`` from them instead of wrapping.  The outputs may not
     overlap the inputs.  Returns ``(a, d)``."""
-    _check_input(x)
-    a, d = _fw_outs(x, a, d)
-    halos = _check_halos((above, below), x, halo_reach(wt, False), False)
-    _check_disjoint((x,) + (halos or ()), (a, d), "axis0_fw")
-    if x.device.type == "cpu":
-        return axis0_fw_plain(x, wt, a, d, above=above, below=below)
-    if x.numel():
-        with torch.cuda.device(x.device):
-            _launch_fw(x, wt, a, d, halos,
-                       torch.cuda.current_stream().cuda_stream)
-        LAUNCHES["axis0_fw" if halos is None else "axis0_fw_halo"] += 1
-    return a, d
+    plain = above is None and below is None
+    with tracing.span("axis0_fw" if plain else "axis0_fw_halo"):
+        _check_input(x)
+        a, d = _fw_outs(x, a, d)
+        halos = _check_halos((above, below), x, halo_reach(wt, False), False)
+        _check_disjoint((x,) + (halos or ()), (a, d), "axis0_fw")
+        if x.device.type == "cpu":
+            return axis0_fw_plain(x, wt, a, d, above=above, below=below)
+        if x.numel():
+            with torch.cuda.device(x.device):
+                _launch_fw(x, wt, a, d, halos,
+                           torch.cuda.current_stream().cuda_stream)
+            LAUNCHES["axis0_fw" if halos is None else "axis0_fw_halo"] += 1
+        return a, d
 
 
 def axis0_inv(a, d, wt, out=None, corner=None, *, halos=None):
@@ -485,19 +485,20 @@ def axis0_inv(a, d, wt, out=None, corner=None, *, halos=None):
     beyond the planes come from them instead of wrapping.  Every view has
     unit column stride; ``out`` may not overlap the inputs.  Returns
     ``out``."""
-    out = _inv_args(a, d, out, corner)
-    halos = _inv_halos(a, wt, corner, halos)
-    reads = (a, d) + ((corner,) if corner is not None else ()) + \
-        (halos or ())
-    _check_disjoint(reads, (out,), "axis0_inv")
-    if a.device.type == "cpu":
-        return axis0_inv_plain(a, d, wt, out, corner, halos=halos)
-    if a.numel():
-        with torch.cuda.device(a.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            if halos is None:
-                _launch_inv(a, d, wt, out, corner, stream)
-            else:
-                _launch_inv_halo(a, d, wt, halos, out, stream)
-        LAUNCHES["axis0_inv" if halos is None else "axis0_inv_halo"] += 1
-    return out
+    with tracing.span("axis0_inv" if halos is None else "axis0_inv_halo"):
+        out = _inv_args(a, d, out, corner)
+        halos = _inv_halos(a, wt, corner, halos)
+        reads = (a, d) + ((corner,) if corner is not None else ()) + \
+            (halos or ())
+        _check_disjoint(reads, (out,), "axis0_inv")
+        if a.device.type == "cpu":
+            return axis0_inv_plain(a, d, wt, out, corner, halos=halos)
+        if a.numel():
+            with torch.cuda.device(a.device):
+                stream = torch.cuda.current_stream().cuda_stream
+                if halos is None:
+                    _launch_inv(a, d, wt, out, corner, stream)
+                else:
+                    _launch_inv_halo(a, d, wt, halos, out, stream)
+            LAUNCHES["axis0_inv" if halos is None else "axis0_inv_halo"] += 1
+        return out

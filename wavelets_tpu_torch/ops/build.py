@@ -24,7 +24,9 @@ import time
 from functools import lru_cache
 from pathlib import Path
 
-__all__ = ["library", "build", "build_log", "check", "dtype_code",
+from .. import tracing
+
+__all__ = ["library", "build", "build_log", "check", "launch", "dtype_code",
            "DTYPE_CODES", "SOURCES"]
 
 PKG = Path(__file__).resolve().parent.parent
@@ -197,3 +199,15 @@ def check(status: int, what: str) -> None:
     if status != 0:
         msg = library().wtt_error_string(status).decode()
         raise RuntimeError(f"{what}: CUDA error {status} ({msg})")
+
+
+# launch key -> (C entry point, span name)
+_ENTRIES = {name[4:]: (name, name[4:] + ".call") for name in _SIGNATURES}
+
+
+def launch(key: str, *args) -> None:
+    """Call the C entry point ``wtt_<key>`` with ``args`` and raise on its
+    status (:func:`check`), inside the span ``<key>.call``."""
+    entry, name = _ENTRIES[key]
+    with tracing.span(name):
+        check(getattr(library(), entry)(*args), key)

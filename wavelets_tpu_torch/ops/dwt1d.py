@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import tracing
 from . import level1d, tail1d
 from .scratch import Scratch
 
@@ -48,43 +49,45 @@ def dwt1(x, wt, L: int, *, plain: bool = False):
     """L-level forward 1-D DWT of a contiguous ``x (B, n)`` -> packed
     ``(B, n)``.  ``plain=True`` runs the kernels' plain versions on any
     device (a reference for checking the kernels on the card)."""
-    level_fw, _, tail_fw, _ = _PLAIN if plain else _KERNELS
-    B, n = x.shape
-    y = torch.empty_like(x)
-    if L == 0:
-        return y.copy_(x)
-    k = kernel_levels1d(n, L, wt, x.dtype, inverse=False)
-    scratch = Scratch(x, (B * (n >> 1), B * (n >> 2)))
-    act = x
-    for l in range(1, k + 1):
-        nh = n >> l
-        s = y[:, :nh] if l == L else scratch.view((l - 1) % 2, B, nh)
-        level_fw(act, wt, s, y[:, nh: 2 * nh])
-        act = s
-    if k < L:
-        tail_fw(act, wt, L - k, out=y[:, : n >> k])
-    return y
+    with tracing.span("dwt1d.dwt1", L):
+        level_fw, _, tail_fw, _ = _PLAIN if plain else _KERNELS
+        B, n = x.shape
+        y = torch.empty_like(x)
+        if L == 0:
+            return y.copy_(x)
+        k = kernel_levels1d(n, L, wt, x.dtype, inverse=False)
+        scratch = Scratch(x, (B * (n >> 1), B * (n >> 2)))
+        act = x
+        for l in range(1, k + 1):
+            nh = n >> l
+            s = y[:, :nh] if l == L else scratch.view((l - 1) % 2, B, nh)
+            level_fw(act, wt, s, y[:, nh: 2 * nh])
+            act = s
+        if k < L:
+            tail_fw(act, wt, L - k, out=y[:, : n >> k])
+        return y
 
 
 def idwt1(y, wt, L: int, *, plain: bool = False):
     """Inverse of :func:`dwt1`: packed ``y (B, n)`` -> ``(B, n)``."""
-    _, level_inv, _, tail_inv = _PLAIN if plain else _KERNELS
-    B, n = y.shape
-    out = torch.empty_like(y, memory_format=torch.contiguous_format)
-    if L == 0:
-        return out.copy_(y)
-    k = kernel_levels1d(n, L, wt, y.dtype, inverse=True)
-    scratch = Scratch(y, (B * (n >> 1), B * (n >> 2)))
+    with tracing.span("dwt1d.idwt1", L):
+        _, level_inv, _, tail_inv = _PLAIN if plain else _KERNELS
+        B, n = y.shape
+        out = torch.empty_like(y, memory_format=torch.contiguous_format)
+        if L == 0:
+            return out.copy_(y)
+        k = kernel_levels1d(n, L, wt, y.dtype, inverse=True)
+        scratch = Scratch(y, (B * (n >> 1), B * (n >> 2)))
 
-    def dest(l):   # where level l's merged n >> (l-1) samples go
-        if l == 1:
-            return out
-        return scratch.view(l % 2, B, n >> (l - 1))
+        def dest(l):   # where level l's merged n >> (l-1) samples go
+            if l == 1:
+                return out
+            return scratch.view(l % 2, B, n >> (l - 1))
 
-    if k < L:
-        act = tail_inv(y[:, : n >> k], wt, L - k, out=dest(k + 1))
-    else:
-        act = y[:, : n >> L]
-    for l in range(k, 0, -1):
-        act = level_inv(act, y[:, n >> l: n >> (l - 1)], wt, out=dest(l))
-    return out
+        if k < L:
+            act = tail_inv(y[:, : n >> k], wt, L - k, out=dest(k + 1))
+        else:
+            act = y[:, : n >> L]
+        for l in range(k, 0, -1):
+            act = level_inv(act, y[:, n >> l: n >> (l - 1)], wt, out=dest(l))
+        return out

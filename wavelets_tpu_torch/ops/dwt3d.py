@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import tracing
 from . import axis0, level2d
 from .level2d import detail_planes
 from .scratch import Scratch
@@ -54,38 +55,40 @@ def dwt3(x, wt, L: int, *, plain: bool = False):
     """L-level forward 3-D DWT of a contiguous ``x (D, M, N)`` -> packed
     ``(D, M, N)``.  ``plain=True`` runs the kernels' plain versions on any
     device (a reference for checking the kernels on the card)."""
-    level_fw, _, a0_fw, _ = _PLAIN if plain else _KERNELS
-    D, M, N = x.shape
-    y = torch.empty_like(x)
-    if L == 0:
-        return y.copy_(x)
-    scratch = Scratch(x, (x.numel(), 0))     # buffer 0 only: A's output
-    act = x
-    for l in range(1, L + 1):
-        d, m, n = D >> (l - 1), M >> (l - 1), N >> (l - 1)
-        s = scratch.view(0, d, m, n)
-        level_fw(act, wt, _quads(s))
-        a0_fw(_rows(s), wt, _rows(y[: d // 2, :m, :n]),
-              _rows(y[d // 2: d, :m, :n]))
-        act = y[: d // 2, : m // 2, : n // 2]
-    return y
+    with tracing.span("dwt3d.dwt3", L):
+        level_fw, _, a0_fw, _ = _PLAIN if plain else _KERNELS
+        D, M, N = x.shape
+        y = torch.empty_like(x)
+        if L == 0:
+            return y.copy_(x)
+        scratch = Scratch(x, (x.numel(), 0))     # buffer 0 only: A's output
+        act = x
+        for l in range(1, L + 1):
+            d, m, n = D >> (l - 1), M >> (l - 1), N >> (l - 1)
+            s = scratch.view(0, d, m, n)
+            level_fw(act, wt, _quads(s))
+            a0_fw(_rows(s), wt, _rows(y[: d // 2, :m, :n]),
+                  _rows(y[d // 2: d, :m, :n]))
+            act = y[: d // 2, : m // 2, : n // 2]
+        return y
 
 
 def idwt3(y, wt, L: int, *, plain: bool = False):
     """Inverse of :func:`dwt3`: packed ``y (D, M, N)`` -> ``(D, M, N)``."""
-    _, level_inv, _, a0_inv = _PLAIN if plain else _KERNELS
-    D, M, N = y.shape
-    out = torch.empty_like(y, memory_format=torch.contiguous_format)
-    if L == 0:
-        return out.copy_(y)
-    scratch = Scratch(y, (y.numel(), y.numel() // 8))
-    corner = None      # the deeper level's result, as a's leading block
-    for l in range(L, 0, -1):
-        d, m, n = D >> (l - 1), M >> (l - 1), N >> (l - 1)
-        s = scratch.view(0, d, m, n)
-        a0_inv(_rows(y[: d // 2, :m, :n]), _rows(y[d // 2: d, :m, :n]), wt,
-               out=_rows(s), corner=corner)
-        dest = out if l == 1 else scratch.view(1, d, m, n)
-        level_inv(*_quads(s), wt, out=dest)
-        corner = _rows(dest)
-    return out
+    with tracing.span("dwt3d.idwt3", L):
+        _, level_inv, _, a0_inv = _PLAIN if plain else _KERNELS
+        D, M, N = y.shape
+        out = torch.empty_like(y, memory_format=torch.contiguous_format)
+        if L == 0:
+            return out.copy_(y)
+        scratch = Scratch(y, (y.numel(), y.numel() // 8))
+        corner = None      # the deeper level's result, as a's leading block
+        for l in range(L, 0, -1):
+            d, m, n = D >> (l - 1), M >> (l - 1), N >> (l - 1)
+            s = scratch.view(0, d, m, n)
+            a0_inv(_rows(y[: d // 2, :m, :n]), _rows(y[d // 2: d, :m, :n]), wt,
+                   out=_rows(s), corner=corner)
+            dest = out if l == 1 else scratch.view(1, d, m, n)
+            level_inv(*_quads(s), wt, out=dest)
+            corner = _rows(dest)
+        return out

@@ -36,6 +36,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import tracing
 from . import build
 from .bands import acc_dtype, band_table, level_bands, synthesis_bands
 from .level2d import DTYPES, _analysis, _check_disjoint, _synthesis
@@ -250,50 +251,52 @@ def fw1d_plan(x, wt, min_pairs=FW1D_MIN_PAIRS) -> Fw1dPlan:
 def _launch_fw(x, wt, s, d, stream, min_pairs=FW1D_MIN_PAIRS):
     table = band_table(wt, False, x.dtype, x.device)
     B, n = x.shape
-    build.check(build.library().wtt_level1d_fw(
-        build.dtype_code(x.dtype), B, n, x.data_ptr(), x.stride(0),
-        s.data_ptr(), s.stride(0), d.data_ptr(), d.stride(0),
-        table.offs.data_ptr(), table.coefs.data_ptr(), *table.counts,
-        table.dmin, table.span, min_pairs, stream), "level1d_fw")
+    build.launch("level1d_fw", build.dtype_code(x.dtype), B, n, x.data_ptr(),
+                 x.stride(0), s.data_ptr(), s.stride(0), d.data_ptr(),
+                 d.stride(0), table.offs.data_ptr(), table.coefs.data_ptr(),
+                 *table.counts, table.dmin, table.span, min_pairs, stream)
 
 
 def _launch_inv(s, d, wt, out, stream):
     table = band_table(wt, True, s.dtype, s.device)
     B, nh = s.shape
-    build.check(build.library().wtt_level1d_inv(
-        build.dtype_code(s.dtype), B, nh, s.data_ptr(), s.stride(0),
-        d.data_ptr(), d.stride(0), out.data_ptr(), out.stride(0),
-        table.offs.data_ptr(), table.coefs.data_ptr(),
-        (ctypes.c_int * 4)(*table.counts), table.dmin, table.span, stream),
-        "level1d_inv")
+    build.launch("level1d_inv", build.dtype_code(s.dtype), B, nh, s.data_ptr(),
+                 s.stride(0), d.data_ptr(), d.stride(0), out.data_ptr(),
+                 out.stride(0), table.offs.data_ptr(), table.coefs.data_ptr(),
+                 (ctypes.c_int * 4)(*table.counts), table.dmin, table.span,
+                 stream)
 
 
 def level1d_fw(x, wt, s=None, d=None):
     """Forward 1-D level of ``x (B, n)`` into the planes ``s`` and ``d``
     (``(B, n/2)``, unit column stride, any row stride; allocated when both
     are None).  The outputs may not overlap ``x``.  Returns ``(s, d)``."""
-    check_rows(x, "x")
-    s, d = _fw_outs(x, s, d)
-    _check_disjoint((x,), (s, d), "level1d_fw")
-    if x.device.type == "cpu":
-        return level1d_fw_plain(x, wt, s, d)
-    if x.shape[0]:
-        with torch.cuda.device(x.device):
-            _launch_fw(x, wt, s, d, torch.cuda.current_stream().cuda_stream)
-        LAUNCHES["level1d_fw"] += 1
-    return s, d
+    with tracing.span("level1d_fw"):
+        check_rows(x, "x")
+        s, d = _fw_outs(x, s, d)
+        _check_disjoint((x,), (s, d), "level1d_fw")
+        if x.device.type == "cpu":
+            return level1d_fw_plain(x, wt, s, d)
+        if x.shape[0]:
+            with torch.cuda.device(x.device):
+                _launch_fw(x, wt, s, d,
+                           torch.cuda.current_stream().cuda_stream)
+            LAUNCHES["level1d_fw"] += 1
+        return s, d
 
 
 def level1d_inv(s, d, wt, out=None):
     """Inverse 1-D level: the planes ``s`` and ``d`` ``(B, nh)`` (unit
     column stride, any row stride) -> ``out (B, 2nh)`` (allocated when
     None), which may not overlap them.  Returns ``out``."""
-    out = _inv_out(s, d, out)
-    _check_disjoint((s, d), (out,), "level1d_inv")
-    if s.device.type == "cpu":
-        return level1d_inv_plain(s, d, wt, out)
-    if s.shape[0]:
-        with torch.cuda.device(s.device):
-            _launch_inv(s, d, wt, out, torch.cuda.current_stream().cuda_stream)
-        LAUNCHES["level1d_inv"] += 1
-    return out
+    with tracing.span("level1d_inv"):
+        out = _inv_out(s, d, out)
+        _check_disjoint((s, d), (out,), "level1d_inv")
+        if s.device.type == "cpu":
+            return level1d_inv_plain(s, d, wt, out)
+        if s.shape[0]:
+            with torch.cuda.device(s.device):
+                _launch_inv(s, d, wt, out,
+                            torch.cuda.current_stream().cuda_stream)
+            LAUNCHES["level1d_inv"] += 1
+        return out

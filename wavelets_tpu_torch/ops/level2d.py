@@ -28,6 +28,7 @@ import ctypes
 
 import torch
 
+from .. import tracing
 from . import build
 from .bands import acc_dtype, band_table, level_bands, synthesis_bands
 
@@ -317,11 +318,10 @@ def _launch_fw(x, wt, outs, stream):
                          "for the kernel's shared-memory tile")
     B, m, n = x.shape
     ptrs, sb, sr = _planes_args(outs)
-    build.check(build.library().wtt_level_fw(
-        build.dtype_code(x.dtype), B, m, n, x.data_ptr(), x.stride(0),
-        x.stride(1), ptrs, sb, sr, table.offs.data_ptr(),
-        table.coefs.data_ptr(), *table.counts, table.dmin, table.span,
-        stream), "level_fw")
+    build.launch("level_fw", build.dtype_code(x.dtype), B, m, n, x.data_ptr(),
+                 x.stride(0), x.stride(1), ptrs, sb, sr, table.offs.data_ptr(),
+                 table.coefs.data_ptr(), *table.counts, table.dmin, table.span,
+                 stream)
 
 
 def _launch_inv(quads, wt, out, stream):
@@ -332,41 +332,44 @@ def _launch_inv(quads, wt, out, stream):
                          "for the kernel's shared-memory tile")
     B, mh, nh = ll.shape
     ptrs, sb, sr = _planes_args(quads)
-    build.check(build.library().wtt_level_inv(
-        build.dtype_code(ll.dtype), B, mh, nh, ptrs, sb, sr, out.data_ptr(),
-        out.stride(0), out.stride(1), table.offs.data_ptr(),
-        table.coefs.data_ptr(), (ctypes.c_int * 4)(*table.counts),
-        table.dmin, table.span, stream), "level_inv")
+    build.launch("level_inv", build.dtype_code(ll.dtype), B, mh, nh, ptrs, sb,
+                 sr, out.data_ptr(), out.stride(0), out.stride(1),
+                 table.offs.data_ptr(), table.coefs.data_ptr(),
+                 (ctypes.c_int * 4)(*table.counts), table.dmin, table.span,
+                 stream)
 
 
 def level_fw(x, wt, outs=None):
     """Forward 2-D level of ``x (B, m, n)`` into ``outs`` = (LL, LH, HL, HH)
     planes of ``(B, m/2, n/2)`` with unit column stride (allocated when
     None).  The outputs may not overlap ``x``.  Returns the four planes."""
-    _check_input(x)
-    outs = _fw_outs(x, outs)
-    _check_disjoint((x,), outs, "level_fw")
-    if x.device.type == "cpu":
-        return level_fw_plain(x, wt, outs)
-    if x.shape[0]:
-        with torch.cuda.device(x.device):
-            _launch_fw(x, wt, outs, torch.cuda.current_stream().cuda_stream)
-        LAUNCHES["level_fw"] += 1
-    return outs
+    with tracing.span("level_fw"):
+        _check_input(x)
+        outs = _fw_outs(x, outs)
+        _check_disjoint((x,), outs, "level_fw")
+        if x.device.type == "cpu":
+            return level_fw_plain(x, wt, outs)
+        if x.shape[0]:
+            with torch.cuda.device(x.device):
+                _launch_fw(x, wt, outs,
+                           torch.cuda.current_stream().cuda_stream)
+            LAUNCHES["level_fw"] += 1
+        return outs
 
 
 def level_inv(ll, lh, hl, hh, wt, out=None):
     """Inverse 2-D level: the (LL, LH, HL, HH) planes ``(B, mh, nh)`` with
     unit column stride -> ``out (B, 2mh, 2nh)`` (allocated when None),
     which may not overlap the planes.  Returns ``out``."""
-    quads = (ll, lh, hl, hh)
-    out = _inv_args(quads, out)
-    _check_disjoint(quads, (out,), "level_inv")
-    if ll.device.type == "cpu":
-        return level_inv_plain(ll, lh, hl, hh, wt, out)
-    if ll.shape[0]:
-        with torch.cuda.device(ll.device):
-            _launch_inv(quads, wt, out,
-                        torch.cuda.current_stream().cuda_stream)
-        LAUNCHES["level_inv"] += 1
-    return out
+    with tracing.span("level_inv"):
+        quads = (ll, lh, hl, hh)
+        out = _inv_args(quads, out)
+        _check_disjoint(quads, (out,), "level_inv")
+        if ll.device.type == "cpu":
+            return level_inv_plain(ll, lh, hl, hh, wt, out)
+        if ll.shape[0]:
+            with torch.cuda.device(ll.device):
+                _launch_inv(quads, wt, out,
+                            torch.cuda.current_stream().cuda_stream)
+            LAUNCHES["level_inv"] += 1
+        return out

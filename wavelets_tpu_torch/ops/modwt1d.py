@@ -35,6 +35,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import tracing
 from . import build
 from .bands import acc_dtype
 from .level2d import DTYPES, SMEM_LIMIT, _check_disjoint
@@ -315,19 +316,17 @@ def _rows_args(t):
 def _launch_fw(v, wt, j, v1, w1, stream):
     taps = _taps(wt, v.dtype, v.device)
     B, N = v.shape
-    build.check(build.library().wtt_modwt_fw(
-        build.dtype_code(v.dtype), B, N, 2 ** (j - 1) % N, *_rows_args(v),
-        *_rows_args(v1), *_rows_args(w1), taps.data_ptr(), taps.numel() // 2,
-        stream), "modwt_fw")
+    build.launch("modwt_fw", build.dtype_code(v.dtype), B, N, 2 ** (j - 1) % N,
+                 *_rows_args(v), *_rows_args(v1), *_rows_args(w1),
+                 taps.data_ptr(), taps.numel() // 2, stream)
 
 
 def _launch_inv(v1, w1, wt, j, out, stream):
     taps = _taps(wt, v1.dtype, v1.device)
     B, N = v1.shape
-    build.check(build.library().wtt_modwt_inv(
-        build.dtype_code(v1.dtype), B, N, 2 ** (j - 1) % N, *_rows_args(v1),
-        *_rows_args(w1), *_rows_args(out), taps.data_ptr(), taps.numel() // 2,
-        stream), "modwt_inv")
+    build.launch("modwt_inv", build.dtype_code(v1.dtype), B, N,
+                 2 ** (j - 1) % N, *_rows_args(v1), *_rows_args(w1),
+                 *_rows_args(out), taps.data_ptr(), taps.numel() // 2, stream)
 
 
 @lru_cache(maxsize=None)
@@ -341,20 +340,18 @@ def _launch_levels(x, wt, L, out, stream, plan=None):
     taps = _taps(wt, x.dtype, x.device)
     B, N = x.shape
     plan = plan or _plan_of(x, wt, L)
-    build.check(build.library().wtt_modwt_fw_levels(
-        build.dtype_code(x.dtype), B, N, L, *_rows_args(x), out.data_ptr(),
-        out.stride(0), taps.data_ptr(), taps.numel() // 2, *_plan_args(plan),
-        stream), "modwt_fw_levels")
+    build.launch("modwt_fw_levels", build.dtype_code(x.dtype), B, N, L,
+                 *_rows_args(x), out.data_ptr(), out.stride(0),
+                 taps.data_ptr(), taps.numel() // 2, *_plan_args(plan), stream)
 
 
 def _launch_inv_levels(xw, wt, out, stream, plan=None):
     taps = _taps(wt, xw.dtype, xw.device)
     B, N, L1 = xw.shape
     plan = plan or _inv_plan_of(xw, wt)
-    build.check(build.library().wtt_modwt_inv_levels(
-        build.dtype_code(xw.dtype), B, N, L1 - 1, xw.data_ptr(), xw.stride(0),
-        out.data_ptr(), out.stride(0), taps.data_ptr(), taps.numel() // 2,
-        *_plan_args(plan), stream), "modwt_inv_levels")
+    build.launch("modwt_inv_levels", build.dtype_code(xw.dtype), B, N, L1 - 1,
+                 xw.data_ptr(), xw.stride(0), out.data_ptr(), out.stride(0),
+                 taps.data_ptr(), taps.numel() // 2, *_plan_args(plan), stream)
 
 
 def modwt_fw_levels(x, wt, L: int, out=None):
@@ -363,19 +360,21 @@ def modwt_fw_levels(x, wt, L: int, out=None):
     which may not overlap ``x``: detail j in column j-1, the scaling band
     in column L.  Raises for rows that :func:`modwt_plan` does not fit;
     :func:`modwt` runs those one level at a time.  Returns ``out``."""
-    out = _levels_out(x, L, out)
-    _check_disjoint((x,), (out,), "modwt_fw_levels")
-    if not _plan_of(x, wt, L).fits:
-        raise ValueError(f"modwt_fw_levels: rows of {x.shape[1]} {x.dtype} "
-                         f"through {L} levels fit no cluster (modwt_plan)")
-    if x.device.type == "cpu":
-        return modwt_fw_levels_plain(x, wt, L, out)
-    if x.numel():
-        with torch.cuda.device(x.device):
-            _launch_levels(x, wt, L, out,
-                           torch.cuda.current_stream().cuda_stream)
-        LAUNCHES["modwt_fw_levels"] += 1
-    return out
+    with tracing.span("modwt_fw_levels"):
+        out = _levels_out(x, L, out)
+        _check_disjoint((x,), (out,), "modwt_fw_levels")
+        if not _plan_of(x, wt, L).fits:
+            raise ValueError(f"modwt_fw_levels: rows of {x.shape[1]} "
+                             f"{x.dtype} through {L} levels fit no cluster "
+                             "(modwt_plan)")
+        if x.device.type == "cpu":
+            return modwt_fw_levels_plain(x, wt, L, out)
+        if x.numel():
+            with torch.cuda.device(x.device):
+                _launch_levels(x, wt, L, out,
+                               torch.cuda.current_stream().cuda_stream)
+            LAUNCHES["modwt_fw_levels"] += 1
+        return out
 
 
 def modwt_inv_levels(xw, wt, out=None):
@@ -384,51 +383,54 @@ def modwt_inv_levels(xw, wt, out=None):
     (unit element stride; allocated when None), which may not overlap
     ``xw``.  Raises for rows that :func:`modwt_inv_plan` does not fit;
     :func:`imodwt` runs those one level at a time.  Returns ``out``."""
-    out = _inv_levels_in(xw, out)
-    _check_disjoint((xw,), (out,), "modwt_inv_levels")
-    if not _inv_plan_of(xw, wt).fits:
-        raise ValueError(f"modwt_inv_levels: rows of {xw.shape[1]} "
-                         f"{xw.dtype} through {xw.shape[2] - 1} levels fit "
-                         "no cluster (modwt_inv_plan)")
-    if xw.device.type == "cpu":
-        return modwt_inv_levels_plain(xw, wt, out)
-    if xw.numel():
-        with torch.cuda.device(xw.device):
-            _launch_inv_levels(xw, wt, out,
-                               torch.cuda.current_stream().cuda_stream)
-        LAUNCHES["modwt_inv_levels"] += 1
-    return out
+    with tracing.span("modwt_inv_levels"):
+        out = _inv_levels_in(xw, out)
+        _check_disjoint((xw,), (out,), "modwt_inv_levels")
+        if not _inv_plan_of(xw, wt).fits:
+            raise ValueError(f"modwt_inv_levels: rows of {xw.shape[1]} "
+                             f"{xw.dtype} through {xw.shape[2] - 1} levels "
+                             "fit no cluster (modwt_inv_plan)")
+        if xw.device.type == "cpu":
+            return modwt_inv_levels_plain(xw, wt, out)
+        if xw.numel():
+            with torch.cuda.device(xw.device):
+                _launch_inv_levels(xw, wt, out,
+                                   torch.cuda.current_stream().cuda_stream)
+            LAUNCHES["modwt_inv_levels"] += 1
+        return out
 
 
 def modwt_fw(v, wt, j: int, v1=None, w1=None):
     """MODWT level ``j`` of ``v (B, N)``: the planes ``v1`` (scaling) and
     ``w1`` (detail), ``(B, N)`` views with any strides (allocated when both
     are None), which may not overlap ``v``.  Returns ``(v1, w1)``."""
-    v1, w1 = _fw_outs(v, j, v1, w1)
-    _check_disjoint((v,), (v1, w1), "modwt_fw")
-    if v.device.type == "cpu":
-        return modwt_fw_plain(v, wt, j, v1, w1)
-    if v.numel():
-        with torch.cuda.device(v.device):
-            _launch_fw(v, wt, j, v1, w1,
-                       torch.cuda.current_stream().cuda_stream)
-        LAUNCHES["modwt_fw"] += 1
-    return v1, w1
+    with tracing.span("modwt_fw", j):
+        v1, w1 = _fw_outs(v, j, v1, w1)
+        _check_disjoint((v,), (v1, w1), "modwt_fw")
+        if v.device.type == "cpu":
+            return modwt_fw_plain(v, wt, j, v1, w1)
+        if v.numel():
+            with torch.cuda.device(v.device):
+                _launch_fw(v, wt, j, v1, w1,
+                           torch.cuda.current_stream().cuda_stream)
+            LAUNCHES["modwt_fw"] += 1
+        return v1, w1
 
 
 def modwt_inv(v1, w1, wt, j: int, out=None):
     """Inverse of :func:`modwt_fw`: ``(v1, w1)`` -> ``out (B, N)`` (any
     strides; allocated when None), which may not overlap them."""
-    out = _inv_out(v1, w1, j, out)
-    _check_disjoint((v1, w1), (out,), "modwt_inv")
-    if v1.device.type == "cpu":
-        return modwt_inv_plain(v1, w1, wt, j, out)
-    if v1.numel():
-        with torch.cuda.device(v1.device):
-            _launch_inv(v1, w1, wt, j, out,
-                        torch.cuda.current_stream().cuda_stream)
-        LAUNCHES["modwt_inv"] += 1
-    return out
+    with tracing.span("modwt_inv", j):
+        out = _inv_out(v1, w1, j, out)
+        _check_disjoint((v1, w1), (out,), "modwt_inv")
+        if v1.device.type == "cpu":
+            return modwt_inv_plain(v1, w1, wt, j, out)
+        if v1.numel():
+            with torch.cuda.device(v1.device):
+                _launch_inv(v1, w1, wt, j, out,
+                            torch.cuda.current_stream().cuda_stream)
+            LAUNCHES["modwt_inv"] += 1
+        return out
 
 
 # --- the multi-level driver ----------------------------------------------------
@@ -440,20 +442,21 @@ def modwt(x, wt, L: int, *, plain: bool = False):
     level, the scaling bands taking turns in two scratch rows and each
     detail landing in its column.  ``plain=True`` runs the plain versions
     on any device."""
-    B, N = x.shape
-    check_levels(N, L)
-    out = torch.empty((B, N, L + 1), dtype=x.dtype, device=x.device)
-    if _plan_of(x, wt, L).fits:
-        levels = modwt_fw_levels_plain if plain else modwt_fw_levels
-        return levels(x, wt, L, out)
-    fw = modwt_fw_plain if plain else modwt_fw
-    scratch = Scratch(x, (B * N, B * N))
-    v = x
-    for j in range(1, L + 1):
-        v1 = out[..., L] if j == L else scratch.view((j - 1) % 2, B, N)
-        fw(v, wt, j, v1, out[..., j - 1])
-        v = v1
-    return out
+    with tracing.span("modwt1d.modwt", L):
+        B, N = x.shape
+        check_levels(N, L)
+        out = torch.empty((B, N, L + 1), dtype=x.dtype, device=x.device)
+        if _plan_of(x, wt, L).fits:
+            levels = modwt_fw_levels_plain if plain else modwt_fw_levels
+            return levels(x, wt, L, out)
+        fw = modwt_fw_plain if plain else modwt_fw
+        scratch = Scratch(x, (B * N, B * N))
+        v = x
+        for j in range(1, L + 1):
+            v1 = out[..., L] if j == L else scratch.view((j - 1) % 2, B, N)
+            fw(v, wt, j, v1, out[..., j - 1])
+            v = v1
+        return out
 
 
 def imodwt(xw, wt, *, plain: bool = False):
@@ -463,18 +466,19 @@ def imodwt(xw, wt, *, plain: bool = False):
     level, reading each column in place, the scaling bands taking turns
     in two scratch rows.  ``plain=True`` runs the plain versions on any
     device."""
-    B, N, L1 = xw.shape
-    L = L1 - 1
-    out = torch.empty((B, N), dtype=xw.dtype, device=xw.device)
-    if L == 0:
-        return out.copy_(xw[..., 0])
-    if 2 ** L <= N and _inv_layout(xw) and _inv_plan_of(xw, wt).fits:
-        levels = modwt_inv_levels_plain if plain else modwt_inv_levels
-        return levels(xw, wt, out)
-    inv = modwt_inv_plain if plain else modwt_inv
-    scratch = Scratch(xw, (B * N, B * N))
-    v = xw[..., L]
-    for j in range(L, 0, -1):
-        dest = out if j == 1 else scratch.view(j % 2, B, N)
-        v = inv(v, xw[..., j - 1], wt, j, out=dest)
-    return out
+    with tracing.span("modwt1d.imodwt", xw.shape[-1] - 1):
+        B, N, L1 = xw.shape
+        L = L1 - 1
+        out = torch.empty((B, N), dtype=xw.dtype, device=xw.device)
+        if L == 0:
+            return out.copy_(xw[..., 0])
+        if 2 ** L <= N and _inv_layout(xw) and _inv_plan_of(xw, wt).fits:
+            levels = modwt_inv_levels_plain if plain else modwt_inv_levels
+            return levels(xw, wt, out)
+        inv = modwt_inv_plain if plain else modwt_inv
+        scratch = Scratch(xw, (B * N, B * N))
+        v = xw[..., L]
+        for j in range(L, 0, -1):
+            dest = out if j == 1 else scratch.view(j % 2, B, N)
+            v = inv(v, xw[..., j - 1], wt, j, out=dest)
+        return out

@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import tracing
 from . import level2d, rowcol2d, stage2d, tail2d
 from .level2d import detail_planes
 from .scratch import Scratch
@@ -85,72 +86,79 @@ def dwt2(x, wt, L: int, *, route: str = "level", plain: bool = False):
     ``(B, m, n)``, through ``route`` (see the module docstring).
     ``plain=True`` runs the kernels' plain versions on any device (a
     reference for checking the kernels on the card)."""
-    _check_route(route, False)
-    level_fw, _, tail_fw, _, stage_fw, split_fw, _ = \
-        _PLAIN if plain else _KERNELS
-    B, m, n = x.shape
-    y = torch.empty_like(x)
-    if L == 0:
-        return y.copy_(x)
-    k = kernel_levels(m, n, L, wt, x.dtype, inverse=False)
-    if route == "split":
-        scratch = Scratch(x, (B * m * n, 0))
-        act = x
-        for l in range(1, k + 1):
-            ml, nl = m >> (l - 1), n >> (l - 1)
-            split_fw(act, wt, y[:, :ml, :nl], scratch.view(0, B, ml, nl))
-            act = y[:, : ml >> 1, : nl >> 1]
-    else:
-        scratch = Scratch(x, (B * (m >> 1) * (n >> 1), B * (m >> 2) * (n >> 2)))
-        act, first = x, 1
-        if route == "stage" and stage_ok(B, m, n, L, wt, x.dtype):
-            ll2 = (y[:, : m >> 2, : n >> 2] if L == 2
-                   else scratch.view(1, B, m >> 2, n >> 2))
-            stage_fw(x, wt, (ll2, *detail_planes(y, 1), *detail_planes(y, 2)))
-            act, first = ll2, 3
-        for l in range(first, k + 1):
-            mh, nh = m >> l, n >> l
-            ll = y[:, :mh, :nh] if l == L else scratch.view((l - 1) % 2, B, mh,
-                                                             nh)
-            level_fw(act, wt, (ll, *detail_planes(y, l)))
-            act = ll
-    if k < L:
-        # in place on the split route: the tail reads its image first
-        tail_fw(act, wt, L - k, out=y[:, : m >> k, : n >> k])
-    return y
+    with tracing.span("pyramid2d.dwt2", L):
+        _check_route(route, False)
+        level_fw, _, tail_fw, _, stage_fw, split_fw, _ = \
+            _PLAIN if plain else _KERNELS
+        B, m, n = x.shape
+        y = torch.empty_like(x)
+        if L == 0:
+            return y.copy_(x)
+        k = kernel_levels(m, n, L, wt, x.dtype, inverse=False)
+        if route == "split":
+            scratch = Scratch(x, (B * m * n, 0))
+            act = x
+            for l in range(1, k + 1):
+                ml, nl = m >> (l - 1), n >> (l - 1)
+                split_fw(act, wt, y[:, :ml, :nl], scratch.view(0, B, ml, nl))
+                act = y[:, : ml >> 1, : nl >> 1]
+        else:
+            scratch = Scratch(x, (B * (m >> 1) * (n >> 1),
+                                  B * (m >> 2) * (n >> 2)))
+            act, first = x, 1
+            if route == "stage" and stage_ok(B, m, n, L, wt, x.dtype):
+                ll2 = (y[:, : m >> 2, : n >> 2] if L == 2
+                       else scratch.view(1, B, m >> 2, n >> 2))
+                stage_fw(x, wt, (ll2, *detail_planes(y, 1),
+                                 *detail_planes(y, 2)))
+                act, first = ll2, 3
+            for l in range(first, k + 1):
+                mh, nh = m >> l, n >> l
+                ll = (y[:, :mh, :nh] if l == L
+                      else scratch.view((l - 1) % 2, B, mh, nh))
+                level_fw(act, wt, (ll, *detail_planes(y, l)))
+                act = ll
+        if k < L:
+            # in place on the split route: the tail reads its image first
+            tail_fw(act, wt, L - k, out=y[:, : m >> k, : n >> k])
+        return y
 
 
 def idwt2(y, wt, L: int, *, route: str = "level", plain: bool = False):
     """Inverse of :func:`dwt2`: packed ``y (B, m, n)`` -> ``(B, m, n)``,
     through ``route`` ("level" or "split")."""
-    _check_route(route, True)
-    _, level_inv, _, tail_inv, _, _, split_inv = _PLAIN if plain else _KERNELS
-    B, m, n = y.shape
-    out = torch.empty_like(y, memory_format=torch.contiguous_format)
-    if L == 0:
-        return out.copy_(y)
-    k = kernel_levels(m, n, L, wt, y.dtype, inverse=True)
-    split = route == "split"
-    # the split route's J writes buffer 0, its F and the tail buffer 1
-    scratch = Scratch(y, (B * m * n, B * (m >> 1) * (n >> 1)) if split
-                      else (B * (m >> 1) * (n >> 1), B * (m >> 2) * (n >> 2)))
+    with tracing.span("pyramid2d.idwt2", L):
+        _check_route(route, True)
+        _, level_inv, _, tail_inv, _, _, split_inv = \
+            _PLAIN if plain else _KERNELS
+        B, m, n = y.shape
+        out = torch.empty_like(y, memory_format=torch.contiguous_format)
+        if L == 0:
+            return out.copy_(y)
+        k = kernel_levels(m, n, L, wt, y.dtype, inverse=True)
+        split = route == "split"
+        # the split route's J writes buffer 0, its F and the tail buffer 1
+        scratch = Scratch(y, (B * m * n, B * (m >> 1) * (n >> 1)) if split
+                          else (B * (m >> 1) * (n >> 1),
+                                B * (m >> 2) * (n >> 2)))
 
-    def dest(l):   # where level l's merged (m >> (l-1), n >> (l-1)) goes
-        if l == 1:
-            return out
-        return scratch.view(1 if split else l % 2, B, m >> (l - 1),
-                            n >> (l - 1))
+        def dest(l):   # where level l's merged (m >> (l-1), n >> (l-1)) goes
+            if l == 1:
+                return out
+            return scratch.view(1 if split else l % 2, B, m >> (l - 1),
+                                n >> (l - 1))
 
-    if k < L:
-        act = tail_inv(y[:, : m >> k, : n >> k], wt, L - k, out=dest(k + 1))
-    else:
-        act = y[:, : m >> L, : n >> L]
-    for l in range(k, 0, -1):
-        if split:
-            ml, nl = m >> (l - 1), n >> (l - 1)
-            act = split_inv(y[:, :ml, :nl], wt, dest(l),
-                            corner=act if k < L or l < k else None,
-                            scratch=scratch.view(0, B, ml, nl))
+        if k < L:
+            act = tail_inv(y[:, : m >> k, : n >> k], wt, L - k,
+                           out=dest(k + 1))
         else:
-            act = level_inv(act, *detail_planes(y, l), wt, out=dest(l))
-    return out
+            act = y[:, : m >> L, : n >> L]
+        for l in range(k, 0, -1):
+            if split:
+                ml, nl = m >> (l - 1), n >> (l - 1)
+                act = split_inv(y[:, :ml, :nl], wt, dest(l),
+                                corner=act if k < L or l < k else None,
+                                scratch=scratch.view(0, B, ml, nl))
+            else:
+                act = level_inv(act, *detail_planes(y, l), wt, out=dest(l))
+        return out

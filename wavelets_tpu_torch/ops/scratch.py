@@ -2,7 +2,8 @@
 
 A level reads its active array while it writes the next one, so the
 drivers (ops/pyramid2d.py, ops/dwt1d.py, ops/wpt.py) alternate between
-two buffers and no launch writes the memory it reads.
+two buffers and no launch writes the memory it reads.  ``ALLOCATED``
+counts the bytes the buffers took, over every driver call.
 """
 
 from __future__ import annotations
@@ -11,7 +12,9 @@ import math
 
 import torch
 
-__all__ = ["Scratch"]
+__all__ = ["Scratch", "ALLOCATED"]
+
+ALLOCATED = {"bytes": 0}
 
 
 class Scratch:
@@ -29,4 +32,5 @@ class Scratch:
         if self.bufs[i] is None:
             self.bufs[i] = torch.empty(self.caps[i], dtype=self.like.dtype,
                                        device=self.like.device)
+            ALLOCATED["bytes"] += self.bufs[i].nbytes
         return self.bufs[i][: math.prod(shape)].view(shape)

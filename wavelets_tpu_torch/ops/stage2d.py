@@ -34,6 +34,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import tracing
 from . import build
 from .bands import acc_dtype, band_table, level_bands, tap_count
 from .level2d import (SMEM_LIMIT, _check_disjoint, _check_input, _check_plane,
@@ -220,11 +221,10 @@ def _launch(x, wt, outs, tile, stream, strips=True):
     table = band_table(wt, False, x.dtype, x.device)
     B, m, n = x.shape
     ptrs, sb, sr = _planes_args(outs)
-    build.check(build.library().wtt_stage2_fw(
-        build.dtype_code(x.dtype), B, m, n, x.data_ptr(), x.stride(0),
-        x.stride(1), ptrs, sb, sr, table.offs.data_ptr(),
-        table.coefs.data_ptr(), *table.counts, table.dmin, table.span, tile,
-        int(strips), stream), "stage2_fw")
+    build.launch("stage2_fw", build.dtype_code(x.dtype), B, m, n, x.data_ptr(),
+                 x.stride(0), x.stride(1), ptrs, sb, sr, table.offs.data_ptr(),
+                 table.coefs.data_ptr(), *table.counts, table.dmin, table.span,
+                 tile, int(strips), stream)
 
 
 def stage2_fw(x, wt, outs=None):
@@ -234,17 +234,19 @@ def stage2_fw(x, wt, outs=None):
     where :func:`stage_window` gives a window, else its first form with
     :func:`stage_tile`'s tile.  Raises for a wavelet whose window fits no
     tile.  Returns the seven planes."""
-    _check_input(x)
-    outs = _outs(x, outs)
-    _check_disjoint((x,), outs, "stage2_fw")
-    if x.device.type == "cpu":
-        return stage2_fw_plain(x, wt, outs)
-    tile = stage_tile(wt, x.dtype)
-    if tile is None:
-        raise ValueError(f"stage2_fw: the bands of {wt.name} reach too far "
-                         "for the kernel's shared-memory window")
-    if x.shape[0]:
-        with torch.cuda.device(x.device):
-            _launch(x, wt, outs, tile, torch.cuda.current_stream().cuda_stream)
-        LAUNCHES["stage2_fw"] += 1
-    return outs
+    with tracing.span("stage2_fw"):
+        _check_input(x)
+        outs = _outs(x, outs)
+        _check_disjoint((x,), outs, "stage2_fw")
+        if x.device.type == "cpu":
+            return stage2_fw_plain(x, wt, outs)
+        tile = stage_tile(wt, x.dtype)
+        if tile is None:
+            raise ValueError(f"stage2_fw: the bands of {wt.name} reach too "
+                             "far for the kernel's shared-memory window")
+        if x.shape[0]:
+            with torch.cuda.device(x.device):
+                _launch(x, wt, outs, tile,
+                        torch.cuda.current_stream().cuda_stream)
+            LAUNCHES["stage2_fw"] += 1
+        return outs

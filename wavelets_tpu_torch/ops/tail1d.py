@@ -30,6 +30,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import tracing
 from . import build
 from .bands import (acc_dtype, band_table, level_bands, synthesis_bands,
                     tap_count)
@@ -228,22 +229,21 @@ def tail1d_inv_plain(y, wt, L: int, out=None):
 def _launch_fw(x, wt, L, out, stream, staged=True):
     B, n = x.shape
     table = band_table(wt, False, x.dtype, x.device)
-    build.check(build.library().wtt_tail1d_fw(
-        build.dtype_code(x.dtype), B, n, L, x.data_ptr(), x.stride(0),
-        out.data_ptr(), out.stride(0), table.offs.data_ptr(),
-        table.coefs.data_ptr(), *table.counts, table.dmin, table.span,
-        fw_window(wt) if staged else 0, stream), "tail1d_fw")
+    build.launch("tail1d_fw", build.dtype_code(x.dtype), B, n, L, x.data_ptr(),
+                 x.stride(0), out.data_ptr(), out.stride(0),
+                 table.offs.data_ptr(), table.coefs.data_ptr(), *table.counts,
+                 table.dmin, table.span, fw_window(wt) if staged else 0,
+                 stream)
 
 
 def _launch_inv(y, wt, L, out, stream, staged=True):
     B, n = y.shape
     table = band_table(wt, True, y.dtype, y.device)
-    build.check(build.library().wtt_tail1d_inv(
-        build.dtype_code(y.dtype), B, n, L, y.data_ptr(), y.stride(0),
-        out.data_ptr(), out.stride(0), table.offs.data_ptr(),
-        table.coefs.data_ptr(), (ctypes.c_int * 4)(*table.counts),
-        table.dmin, table.span, inv_window(wt) if staged else 0, stream),
-        "tail1d_inv")
+    build.launch("tail1d_inv", build.dtype_code(y.dtype), B, n, L,
+                 y.data_ptr(), y.stride(0), out.data_ptr(), out.stride(0),
+                 table.offs.data_ptr(), table.coefs.data_ptr(),
+                 (ctypes.c_int * 4)(*table.counts), table.dmin, table.span,
+                 inv_window(wt) if staged else 0, stream)
 
 
 def tail1d_fw(x, wt, L: int, out=None):
@@ -251,15 +251,17 @@ def tail1d_fw(x, wt, L: int, out=None):
     ``(B, n)`` (allocated when None): the staged form where
     :func:`fw_window` gives a window, else the first form.  Raises for a
     row that does not fit (:func:`tail1d_fits`).  Returns ``out``."""
-    out = _check(x, L, out, "tail1d_fw")
-    _check_fits(x, wt, False, "tail1d_fw")
-    if x.device.type == "cpu":
-        return tail1d_fw_plain(x, wt, L, out)
-    if x.shape[0]:
-        with torch.cuda.device(x.device):
-            _launch_fw(x, wt, L, out, torch.cuda.current_stream().cuda_stream)
-        LAUNCHES["tail1d_fw"] += 1
-    return out
+    with tracing.span("tail1d_fw"):
+        out = _check(x, L, out, "tail1d_fw")
+        _check_fits(x, wt, False, "tail1d_fw")
+        if x.device.type == "cpu":
+            return tail1d_fw_plain(x, wt, L, out)
+        if x.shape[0]:
+            with torch.cuda.device(x.device):
+                _launch_fw(x, wt, L, out,
+                           torch.cuda.current_stream().cuda_stream)
+            LAUNCHES["tail1d_fw"] += 1
+        return out
 
 
 def tail1d_inv(y, wt, L: int, out=None):
@@ -267,13 +269,14 @@ def tail1d_inv(y, wt, L: int, out=None):
     (allocated when None), in one launch: the staged form where
     :func:`inv_window` gives a window, else the first form.  Returns
     ``out``."""
-    out = _check(y, L, out, "tail1d_inv")
-    _check_fits(y, wt, True, "tail1d_inv")
-    if y.device.type == "cpu":
-        return tail1d_inv_plain(y, wt, L, out)
-    if y.shape[0]:
-        with torch.cuda.device(y.device):
-            _launch_inv(y, wt, L, out,
-                        torch.cuda.current_stream().cuda_stream)
-        LAUNCHES["tail1d_inv"] += 1
-    return out
+    with tracing.span("tail1d_inv"):
+        out = _check(y, L, out, "tail1d_inv")
+        _check_fits(y, wt, True, "tail1d_inv")
+        if y.device.type == "cpu":
+            return tail1d_inv_plain(y, wt, L, out)
+        if y.shape[0]:
+            with torch.cuda.device(y.device):
+                _launch_inv(y, wt, L, out,
+                            torch.cuda.current_stream().cuda_stream)
+            LAUNCHES["tail1d_inv"] += 1
+        return out

@@ -31,6 +31,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import tracing
 from . import build
 from .bands import (acc_dtype, band_table, level_bands, synthesis_bands,
                     tap_count)
@@ -225,49 +226,52 @@ def _launch_fw(x, wt, L, out, stream, plan=None):
     B, m, n = x.shape
     plan = plan or tail_plan(B, m, n, L, wt, x.dtype)
     table = band_table(wt, False, x.dtype, x.device)
-    build.check(build.library().wtt_tail_fw(
-        build.dtype_code(x.dtype), B, m, n, L, x.data_ptr(), x.stride(0),
-        x.stride(1), out.data_ptr(), out.stride(0), out.stride(1),
-        table.offs.data_ptr(), table.coefs.data_ptr(), *table.counts,
-        *_plan_args(plan), stream), "tail_fw")
+    build.launch("tail_fw", build.dtype_code(x.dtype), B, m, n, L,
+                 x.data_ptr(), x.stride(0), x.stride(1), out.data_ptr(),
+                 out.stride(0), out.stride(1), table.offs.data_ptr(),
+                 table.coefs.data_ptr(), *table.counts, *_plan_args(plan),
+                 stream)
 
 
 def _launch_inv(y, wt, L, out, stream, plan=None):
     B, m, n = y.shape
     plan = plan or tail_plan(B, m, n, L, wt, y.dtype, True)
     table = band_table(wt, True, y.dtype, y.device)
-    build.check(build.library().wtt_tail_inv(
-        build.dtype_code(y.dtype), B, m, n, L, y.data_ptr(), y.stride(0),
-        y.stride(1), out.data_ptr(), out.stride(0), out.stride(1),
-        table.offs.data_ptr(), table.coefs.data_ptr(),
-        (ctypes.c_int * 4)(*table.counts),
-        *_plan_args(plan), stream), "tail_inv")
+    build.launch("tail_inv", build.dtype_code(y.dtype), B, m, n, L,
+                 y.data_ptr(), y.stride(0), y.stride(1), out.data_ptr(),
+                 out.stride(0), out.stride(1), table.offs.data_ptr(),
+                 table.coefs.data_ptr(), (ctypes.c_int * 4)(*table.counts),
+                 *_plan_args(plan), stream)
 
 
 def tail_fw(x, wt, L: int, out=None):
     """L forward levels of ``x (B, m, n)`` in one launch -> packed ``out``
     ``(B, m, n)`` (allocated when None).  Raises for an array that does not
     fit (:func:`tail_fits`).  Returns ``out``."""
-    out = _check(x, L, out, "tail_fw")
-    _check_fits(x, wt, False, "tail_fw")
-    if x.device.type == "cpu":
-        return tail_fw_plain(x, wt, L, out)
-    if x.shape[0]:
-        with torch.cuda.device(x.device):
-            _launch_fw(x, wt, L, out, torch.cuda.current_stream().cuda_stream)
-        LAUNCHES["tail_fw"] += 1
-    return out
+    with tracing.span("tail_fw"):
+        out = _check(x, L, out, "tail_fw")
+        _check_fits(x, wt, False, "tail_fw")
+        if x.device.type == "cpu":
+            return tail_fw_plain(x, wt, L, out)
+        if x.shape[0]:
+            with torch.cuda.device(x.device):
+                _launch_fw(x, wt, L, out,
+                           torch.cuda.current_stream().cuda_stream)
+            LAUNCHES["tail_fw"] += 1
+        return out
 
 
 def tail_inv(y, wt, L: int, out=None):
     """Inverse of :func:`tail_fw`: packed ``y (B, m, n)`` -> ``out``
     ``(B, m, n)`` (allocated when None), in one launch.  Returns ``out``."""
-    out = _check(y, L, out, "tail_inv")
-    _check_fits(y, wt, True, "tail_inv")
-    if y.device.type == "cpu":
-        return tail_inv_plain(y, wt, L, out)
-    if y.shape[0]:
-        with torch.cuda.device(y.device):
-            _launch_inv(y, wt, L, out, torch.cuda.current_stream().cuda_stream)
-        LAUNCHES["tail_inv"] += 1
-    return out
+    with tracing.span("tail_inv"):
+        out = _check(y, L, out, "tail_inv")
+        _check_fits(y, wt, True, "tail_inv")
+        if y.device.type == "cpu":
+            return tail_inv_plain(y, wt, L, out)
+        if y.shape[0]:
+            with torch.cuda.device(y.device):
+                _launch_inv(y, wt, L, out,
+                            torch.cuda.current_stream().cuda_stream)
+            LAUNCHES["tail_inv"] += 1
+        return out

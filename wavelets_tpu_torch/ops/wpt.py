@@ -23,6 +23,7 @@ import torch
 from ..utils.trees import treedepth
 from ..wt.carriers import GLS, OrthoFilter
 from ..wt.factor import check_boundary_stability
+from .. import tracing
 from . import filter_fb, level1d, lifting
 from .level2d import DTYPES
 from .scratch import Scratch
@@ -105,9 +106,11 @@ def wpt(x, wt, tree: np.ndarray, *, plain: bool = False):
     """Forward wavelet packet transform of ``x`` along the last axis over a
     valid ``tree``.  ``plain=True`` runs the level kernels' plain versions
     on any device (a reference for checking the kernels on the card)."""
-    return _wpt_impl(x, wt, tree, True, plain)
+    with tracing.span("wpt.wpt"):
+        return _wpt_impl(x, wt, tree, True, plain)
 
 
 def iwpt(y, wt, tree: np.ndarray, *, plain: bool = False):
     """Inverse wavelet packet transform along the last axis."""
-    return _wpt_impl(y, wt, tree, False, plain)
+    with tracing.span("wpt.iwpt"):
+        return _wpt_impl(y, wt, tree, False, plain)

@@ -31,6 +31,10 @@ all levels where ops/modwt1d.py's plan fits the rows (one level launch
 per level beyond it), ``imodwt`` one level launch per level.  Everything
 else runs on the torch engines (ops/lifting.py, ops/filter_fb.py,
 ops/modwt.py) on the tensor's own device.
+
+Each public call opens a root span of ``tracing.py`` (``dwt``, ``idwt``,
+``wpt``, ``iwpt``, ``modwt``, ``imodwt``), which records only while
+tracing is on.
 """
 
 from __future__ import annotations
@@ -46,6 +50,7 @@ from .utils.indexing import (maxmodwttransformlevels, maxtransformlevels,
 from .utils.trees import isvalidtree, maketree
 from .wt.carriers import GLS, OrthoFilter, DiscreteWavelet
 from .wt.factor import check_boundary_stability
+from . import tracing
 from .ops import (dwt1d, dwt3d, filter_fb, lifting, modwt as modwt_ops,
                   modwt1d, pyramid2d, wpt as wpt_ops)
 from .ops.level2d import DTYPES
@@ -189,27 +194,29 @@ def dwt(x, wt: DiscreteWavelet, L: int | None = None, *,
     coefficients in the packed layout, on that device (the input itself
     when ``L`` is 0, unless complex).
     """
-    x = _as_float(x, device)
-    if x.is_complex():
-        return _parts(dwt, x, wt, L, ndt=ndt)
-    ndt = _ndt(x, ndt)
-    if L is None:
-        L = maxtransformlevels(tuple(x.shape[-ndt:]))
-    _check_levels(x, L, ndt)
-    return _transform(x, wt, int(L), ndt, True)
+    with tracing.span("dwt", -1 if L is None else L):
+        x = _as_float(x, device)
+        if x.is_complex():
+            return _parts(dwt, x, wt, L, ndt=ndt)
+        ndt = _ndt(x, ndt)
+        if L is None:
+            L = maxtransformlevels(tuple(x.shape[-ndt:]))
+        _check_levels(x, L, ndt)
+        return _transform(x, wt, int(L), ndt, True)
 
 
 def idwt(y, wt: DiscreteWavelet, L: int | None = None, *,
          ndt: int | None = None, donate: bool = False, device=None):
     """Inverse of :func:`dwt` (``donate`` as there)."""
-    y = _as_float(y, device)
-    if y.is_complex():
-        return _parts(idwt, y, wt, L, ndt=ndt)
-    ndt = _ndt(y, ndt)
-    if L is None:
-        L = maxtransformlevels(tuple(y.shape[-ndt:]))
-    _check_levels(y, L, ndt)
-    return _transform(y, wt, int(L), ndt, False)
+    with tracing.span("idwt", -1 if L is None else L):
+        y = _as_float(y, device)
+        if y.is_complex():
+            return _parts(idwt, y, wt, L, ndt=ndt)
+        ndt = _ndt(y, ndt)
+        if L is None:
+            L = maxtransformlevels(tuple(y.shape[-ndt:]))
+        _check_levels(y, L, ndt)
+        return _transform(y, wt, int(L), ndt, False)
 
 
 # --- wavelet packets --------------------------------------------------------
@@ -257,15 +264,17 @@ def wpt(x, wt: DiscreteWavelet, tree=None, L: int | None = None, *,
     integer third positional is taken as ``L``.  ``donate`` and ``device``
     as for :func:`dwt`.
     """
-    tree, L = _tree_or_levels(tree, L)
-    return _wpt_common(x, wt, tree, L, True, device)
+    with tracing.span("wpt"):
+        tree, L = _tree_or_levels(tree, L)
+        return _wpt_common(x, wt, tree, L, True, device)
 
 
 def iwpt(y, wt: DiscreteWavelet, tree=None, L: int | None = None, *,
          donate: bool = False, device=None):
     """Inverse of :func:`wpt` (also accepts an integer as ``L``)."""
-    tree, L = _tree_or_levels(tree, L)
-    return _wpt_common(y, wt, tree, L, False, device)
+    with tracing.span("iwpt"):
+        tree, L = _tree_or_levels(tree, L)
+        return _wpt_common(y, wt, tree, L, False, device)
 
 
 # --- MODWT ------------------------------------------------------------------
@@ -277,30 +286,32 @@ def modwt(x, wt: OrthoFilter, L: int | None = None, *,
     works; ``L`` defaults to ``maxmodwttransformlevels(N)``.  Leading axes
     flatten onto the kernels' batch.  ``donate`` and ``device`` as for
     :func:`dwt`."""
-    x = _as_float(x, device)
-    if x.is_complex():
-        return _parts(modwt, x, wt, L)
-    N = x.shape[-1]
-    L = maxmodwttransformlevels(N) if L is None else int(L)
-    modwt_ops.check_levels(N, L)
-    modwt_ops.modwt_filter_pair(wt)          # refuses a lifting scheme
-    if x.dtype not in DTYPES:
-        return modwt_ops.modwt(x, wt, L)
-    flat = x.reshape(-1, N).contiguous()
-    return modwt1d.modwt(flat, wt, L).reshape(*x.shape, L + 1)
+    with tracing.span("modwt", -1 if L is None else L):
+        x = _as_float(x, device)
+        if x.is_complex():
+            return _parts(modwt, x, wt, L)
+        N = x.shape[-1]
+        L = maxmodwttransformlevels(N) if L is None else int(L)
+        modwt_ops.check_levels(N, L)
+        modwt_ops.modwt_filter_pair(wt)          # refuses a lifting scheme
+        if x.dtype not in DTYPES:
+            return modwt_ops.modwt(x, wt, L)
+        flat = x.reshape(-1, N).contiguous()
+        return modwt1d.modwt(flat, wt, L).reshape(*x.shape, L + 1)
 
 
 def imodwt(xw, wt: OrthoFilter, *, donate: bool = False, device=None):
     """Inverse MODWT of an ``(..., N, L+1)`` coefficient array (``donate``
     as for :func:`dwt`)."""
-    xw = _as_float(xw, device)
-    if xw.is_complex():
-        return _parts(imodwt, xw, wt)
-    modwt_ops.modwt_filter_pair(wt)          # refuses a lifting scheme
-    if xw.dtype not in DTYPES:
-        return modwt_ops.imodwt(xw, wt)
-    flat = xw.reshape((-1,) + tuple(xw.shape[-2:]))
-    return modwt1d.imodwt(flat, wt).reshape(xw.shape[:-1])
+    with tracing.span("imodwt"):
+        xw = _as_float(xw, device)
+        if xw.is_complex():
+            return _parts(imodwt, xw, wt)
+        modwt_ops.modwt_filter_pair(wt)          # refuses a lifting scheme
+        if xw.dtype not in DTYPES:
+            return modwt_ops.imodwt(xw, wt)
+        flat = xw.reshape((-1,) + tuple(xw.shape[-2:]))
+        return modwt1d.imodwt(flat, wt).reshape(xw.shape[:-1])
 
 
 # --- column-wise transform over the trailing channel axis -------------------
