@@ -229,6 +229,13 @@ def test_counters_name_every_counting_module():
     assert "level2d.PLAIN_CALLS.level_fw" in got
 
 
+def test_counters_list_the_launch_plans():
+    got = tracing.counters()
+    assert tracing.COUNTERS["ops.build"] == ("PLANS",)
+    assert got["build.PLANS.hits"] == build.PLANS["hits"]
+    assert got["build.PLANS.misses"] == build.PLANS["misses"]
+
+
 class _Library:
     """A stand-in for the kernels' library: entry points return ``status``."""
 

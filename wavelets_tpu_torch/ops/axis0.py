@@ -397,60 +397,72 @@ def fw_plan(x, a, d, wt, halos=None, min_pairs=None) -> FwPlan:
 # --- kernels -----------------------------------------------------------------
 
 def _halo_args(halos):
-    """The C interface's halo arrays: pointers, batch and row strides."""
+    """The C interface's halo arrays: the views (their pointers), their
+    batch and row strides, and their height."""
     n = len(halos)
-    return ((ctypes.c_void_p * n)(*[h.data_ptr() for h in halos]),
-            (ctypes.c_int64 * n)(*[h.stride(0) for h in halos]),
+    return (tuple(halos), (ctypes.c_int64 * n)(*[h.stride(0) for h in halos]),
             (ctypes.c_int64 * n)(*[h.stride(1) for h in halos]),
             halos[0].shape[1])
 
 
-def _launch_fw(x, wt, a, d, halos, stream, min_pairs=None):
-    """Launch kernel I; a level of fewer than ``min_pairs`` output pairs
-    (default ``FW_A0_MIN_PAIRS``) takes the first form, so 0 forces the
-    tiled form where the span allows it, and a bound above the level the
-    first form."""
+def _fw_plan(x, wt, a, d, halos, min_pairs=None):
+    """Kernel I's launch plan for this call's signature; a level of fewer
+    than ``min_pairs`` output pairs (default ``FW_A0_MIN_PAIRS``) takes
+    the first form, so 0 forces the tiled form where the span allows it,
+    and a bound above the level the first form."""
     if min_pairs is None:
         min_pairs = FW_A0_MIN_PAIRS
     table = band_table(wt, False, x.dtype, x.device)
     B, R, C = x.shape
-    head = (build.dtype_code(x.dtype), B, R, C, x.data_ptr(), x.stride(0),
-            x.stride(1), a.data_ptr(), a.stride(0), a.stride(1), d.data_ptr(),
-            d.stride(0), d.stride(1))
+    head = (build.dtype_code(x.dtype), B, R, C, x, x.stride(0), x.stride(1),
+            a, a.stride(0), a.stride(1), d, d.stride(0), d.stride(1))
     tail = (table.offs.data_ptr(), table.coefs.data_ptr(), *table.counts,
-            table.dmin, table.span, min_pairs, stream)
+            table.dmin, table.span, min_pairs)
     if halos is None:
-        build.launch("axis0_fw", *head, *tail)
-    else:
-        build.launch("axis0_fw_halo", *head, *_halo_args(halos), *tail)
+        return build.Plan("axis0_fw", (*head, *tail), (x, a, d), reads=(0,),
+                          keep=table)
+    return build.Plan("axis0_fw_halo", (*head, *_halo_args(halos), *tail),
+                      (x, a, d, *halos), reads=(0, 3, 4), keep=table,
+                      what="axis0_fw")
+
+
+def _inv_plan(a, d, wt, out, corner, halos):
+    """Kernel J's launch plan for this call's signature: with a corner
+    view (or None), or with halos."""
+    table = band_table(wt, True, a.dtype, a.device)
+    B, Rh, C = a.shape
+    head = (build.dtype_code(a.dtype), B, Rh, C, a, a.stride(0), a.stride(1),
+            d, d.stride(0), d.stride(1))
+    tail = (out, out.stride(0), out.stride(1), table.offs.data_ptr(),
+            table.coefs.data_ptr(), (ctypes.c_int * 4)(*table.counts),
+            table.dmin, table.span)
+    if halos is not None:
+        return build.Plan("axis0_inv_halo",
+                          (*head, *_halo_args(halos), *tail),
+                          (a, d, *halos, out), reads=(0, 1, 2, 3, 4, 5),
+                          keep=table, what="axis0_inv")
+    if corner is None:
+        return build.Plan("axis0_inv", (*head, None, 0, 0, 0, 0, *tail),
+                          (a, d, out), reads=(0, 1), keep=table)
+    return build.Plan("axis0_inv", (
+        *head, corner, corner.stride(0), corner.stride(1), corner.shape[0],
+        corner.shape[2], *tail), (a, d, corner, out), reads=(0, 1, 2),
+        keep=table)
+
+
+def _launch_fw(x, wt, a, d, halos, stream, min_pairs=None):
+    """Launch kernel I (:func:`_fw_plan`)."""
+    _fw_plan(x, wt, a, d, halos, min_pairs).call(
+        (x, a, d, *(halos or ())), stream)
 
 
 def _launch_inv_halo(a, d, wt, halos, out, stream):
-    table = band_table(wt, True, a.dtype, a.device)
-    B, Rh, C = a.shape
-    build.launch("axis0_inv_halo", build.dtype_code(a.dtype), B, Rh, C,
-                 a.data_ptr(), a.stride(0), a.stride(1), d.data_ptr(),
-                 d.stride(0), d.stride(1), *_halo_args(halos), out.data_ptr(),
-                 out.stride(0), out.stride(1), table.offs.data_ptr(),
-                 table.coefs.data_ptr(), (ctypes.c_int * 4)(*table.counts),
-                 table.dmin, table.span, stream)
+    _inv_plan(a, d, wt, out, None, halos).call((a, d, *halos, out), stream)
 
 
 def _launch_inv(a, d, wt, out, corner, stream):
-    table = band_table(wt, True, a.dtype, a.device)
-    B, Rh, C = a.shape
-    if corner is None:
-        cptr, csb, csr, Bc, Cc = None, 0, 0, 0, 0
-    else:
-        cptr, csb, csr = corner.data_ptr(), corner.stride(0), corner.stride(1)
-        Bc, Cc = corner.shape[0], corner.shape[2]
-    build.launch("axis0_inv", build.dtype_code(a.dtype), B, Rh, C,
-                 a.data_ptr(), a.stride(0), a.stride(1), d.data_ptr(),
-                 d.stride(0), d.stride(1), cptr, csb, csr, Bc, Cc,
-                 out.data_ptr(), out.stride(0), out.stride(1),
-                 table.offs.data_ptr(), table.coefs.data_ptr(),
-                 (ctypes.c_int * 4)(*table.counts), table.dmin, table.span,
-                 stream)
+    _inv_plan(a, d, wt, out, corner, None).call(
+        (a, d, out) if corner is None else (a, d, corner, out), stream)
 
 
 def axis0_fw(x, wt, a=None, d=None, *, above=None, below=None):
@@ -461,18 +473,25 @@ def axis0_fw(x, wt, a=None, d=None, *, above=None, below=None):
     rows beyond ``x`` from them instead of wrapping.  The outputs may not
     overlap the inputs.  Returns ``(a, d)``."""
     plain = above is None and below is None
-    with tracing.span("axis0_fw" if plain else "axis0_fw_halo"):
-        _check_input(x)
-        a, d = _fw_outs(x, a, d)
-        halos = _check_halos((above, below), x, halo_reach(wt, False), False)
-        _check_disjoint((x,) + (halos or ()), (a, d), "axis0_fw")
-        if x.device.type == "cpu":
-            return axis0_fw_plain(x, wt, a, d, above=above, below=below)
-        if x.numel():
-            with torch.cuda.device(x.device):
-                _launch_fw(x, wt, a, d, halos,
-                           torch.cuda.current_stream().cuda_stream)
-            LAUNCHES["axis0_fw" if halos is None else "axis0_fw_halo"] += 1
+    name = "axis0_fw" if plain else "axis0_fw_halo"
+    with tracing.span(name):
+        key = build.key(name, wt, x, a, d, above, below)
+        plan = build.planned(key)
+        if plan is None:
+            _check_input(x)
+            a, d = _fw_outs(x, a, d)
+            halos = _check_halos((above, below), x, halo_reach(wt, False),
+                                 False)
+            _check_disjoint((x,) + (halos or ()), (a, d), "axis0_fw")
+            if x.device.type == "cpu":
+                return axis0_fw_plain(x, wt, a, d, above=above, below=below)
+            if not x.numel():
+                return a, d
+            plan = build.store(key, _fw_plan(x, wt, a, d, halos))
+        elif a is None:
+            a, d = _fw_outs(x, None, None)
+        plan.launch((x, a, d) if plain else (x, a, d, above, below))
+        LAUNCHES[name] += 1
         return a, d
 
 
@@ -485,20 +504,24 @@ def axis0_inv(a, d, wt, out=None, corner=None, *, halos=None):
     beyond the planes come from them instead of wrapping.  Every view has
     unit column stride; ``out`` may not overlap the inputs.  Returns
     ``out``."""
-    with tracing.span("axis0_inv" if halos is None else "axis0_inv_halo"):
-        out = _inv_args(a, d, out, corner)
-        halos = _inv_halos(a, wt, corner, halos)
-        reads = (a, d) + ((corner,) if corner is not None else ()) + \
-            (halos or ())
-        _check_disjoint(reads, (out,), "axis0_inv")
-        if a.device.type == "cpu":
-            return axis0_inv_plain(a, d, wt, out, corner, halos=halos)
-        if a.numel():
-            with torch.cuda.device(a.device):
-                stream = torch.cuda.current_stream().cuda_stream
-                if halos is None:
-                    _launch_inv(a, d, wt, out, corner, stream)
-                else:
-                    _launch_inv_halo(a, d, wt, halos, out, stream)
-            LAUNCHES["axis0_inv" if halos is None else "axis0_inv_halo"] += 1
+    name = "axis0_inv" if halos is None else "axis0_inv_halo"
+    with tracing.span(name):
+        key = build.key(name, wt, a, d, out, corner, halos)
+        plan = build.planned(key)
+        if plan is None:
+            out = _inv_args(a, d, out, corner)
+            halos = _inv_halos(a, wt, corner, halos)
+            reads = (a, d) + ((corner,) if corner is not None else ()) + \
+                (halos or ())
+            _check_disjoint(reads, (out,), "axis0_inv")
+            if a.device.type == "cpu":
+                return axis0_inv_plain(a, d, wt, out, corner, halos=halos)
+            if not a.numel():
+                return out
+            plan = build.store(key, _inv_plan(a, d, wt, out, corner, halos))
+        elif out is None:
+            out = _inv_args(a, d, None, corner)
+        plan.launch((a, d, *halos, out) if halos is not None else
+                    (a, d, out) if corner is None else (a, d, corner, out))
+        LAUNCHES[name] += 1
         return out

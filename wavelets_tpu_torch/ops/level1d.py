@@ -248,23 +248,34 @@ def fw1d_plan(x, wt, min_pairs=FW1D_MIN_PAIRS) -> Fw1dPlan:
                     lsh, -(-B // rpb) * tiles, fw1d_smem(wt, x.dtype))
 
 
-def _launch_fw(x, wt, s, d, stream, min_pairs=FW1D_MIN_PAIRS):
+def _fw_plan(x, wt, s, d, min_pairs=FW1D_MIN_PAIRS):
+    """Kernel E's launch plan for this call's signature."""
     table = band_table(wt, False, x.dtype, x.device)
     B, n = x.shape
-    build.launch("level1d_fw", build.dtype_code(x.dtype), B, n, x.data_ptr(),
-                 x.stride(0), s.data_ptr(), s.stride(0), d.data_ptr(),
-                 d.stride(0), table.offs.data_ptr(), table.coefs.data_ptr(),
-                 *table.counts, table.dmin, table.span, min_pairs, stream)
+    return build.Plan("level1d_fw", (
+        build.dtype_code(x.dtype), B, n, x, x.stride(0), s, s.stride(0), d,
+        d.stride(0), table.offs.data_ptr(), table.coefs.data_ptr(),
+        *table.counts, table.dmin, table.span, min_pairs), (x, s, d),
+        reads=(0,), keep=table)
+
+
+def _inv_plan(s, d, wt, out):
+    """Kernel F's launch plan for this call's signature."""
+    table = band_table(wt, True, s.dtype, s.device)
+    B, nh = s.shape
+    return build.Plan("level1d_inv", (
+        build.dtype_code(s.dtype), B, nh, s, s.stride(0), d, d.stride(0),
+        out, out.stride(0), table.offs.data_ptr(), table.coefs.data_ptr(),
+        (ctypes.c_int * 4)(*table.counts), table.dmin, table.span),
+        (s, d, out), reads=(0, 1), keep=table)
+
+
+def _launch_fw(x, wt, s, d, stream, min_pairs=FW1D_MIN_PAIRS):
+    _fw_plan(x, wt, s, d, min_pairs).call((x, s, d), stream)
 
 
 def _launch_inv(s, d, wt, out, stream):
-    table = band_table(wt, True, s.dtype, s.device)
-    B, nh = s.shape
-    build.launch("level1d_inv", build.dtype_code(s.dtype), B, nh, s.data_ptr(),
-                 s.stride(0), d.data_ptr(), d.stride(0), out.data_ptr(),
-                 out.stride(0), table.offs.data_ptr(), table.coefs.data_ptr(),
-                 (ctypes.c_int * 4)(*table.counts), table.dmin, table.span,
-                 stream)
+    _inv_plan(s, d, wt, out).call((s, d, out), stream)
 
 
 def level1d_fw(x, wt, s=None, d=None):
@@ -272,16 +283,21 @@ def level1d_fw(x, wt, s=None, d=None):
     (``(B, n/2)``, unit column stride, any row stride; allocated when both
     are None).  The outputs may not overlap ``x``.  Returns ``(s, d)``."""
     with tracing.span("level1d_fw"):
-        check_rows(x, "x")
-        s, d = _fw_outs(x, s, d)
-        _check_disjoint((x,), (s, d), "level1d_fw")
-        if x.device.type == "cpu":
-            return level1d_fw_plain(x, wt, s, d)
-        if x.shape[0]:
-            with torch.cuda.device(x.device):
-                _launch_fw(x, wt, s, d,
-                           torch.cuda.current_stream().cuda_stream)
-            LAUNCHES["level1d_fw"] += 1
+        key = build.key("level1d_fw", wt, x, s, d)
+        plan = build.planned(key)
+        if plan is None:
+            check_rows(x, "x")
+            s, d = _fw_outs(x, s, d)
+            _check_disjoint((x,), (s, d), "level1d_fw")
+            if x.device.type == "cpu":
+                return level1d_fw_plain(x, wt, s, d)
+            if not x.shape[0]:
+                return s, d
+            plan = build.store(key, _fw_plan(x, wt, s, d))
+        elif s is None:
+            s, d = _fw_outs(x, None, None)
+        plan.launch((x, s, d))
+        LAUNCHES["level1d_fw"] += 1
         return s, d
 
 
@@ -290,13 +306,18 @@ def level1d_inv(s, d, wt, out=None):
     column stride, any row stride) -> ``out (B, 2nh)`` (allocated when
     None), which may not overlap them.  Returns ``out``."""
     with tracing.span("level1d_inv"):
-        out = _inv_out(s, d, out)
-        _check_disjoint((s, d), (out,), "level1d_inv")
-        if s.device.type == "cpu":
-            return level1d_inv_plain(s, d, wt, out)
-        if s.shape[0]:
-            with torch.cuda.device(s.device):
-                _launch_inv(s, d, wt, out,
-                            torch.cuda.current_stream().cuda_stream)
-            LAUNCHES["level1d_inv"] += 1
+        key = build.key("level1d_inv", wt, s, d, out)
+        plan = build.planned(key)
+        if plan is None:
+            out = _inv_out(s, d, out)
+            _check_disjoint((s, d), (out,), "level1d_inv")
+            if s.device.type == "cpu":
+                return level1d_inv_plain(s, d, wt, out)
+            if not s.shape[0]:
+                return out
+            plan = build.store(key, _inv_plan(s, d, wt, out))
+        elif out is None:
+            out = _inv_out(s, d, None)
+        plan.launch((s, d, out))
+        LAUNCHES["level1d_inv"] += 1
         return out

@@ -76,8 +76,7 @@ def _check_input(x, name="x"):
 def _extent(t):
     """[first, last] byte address that a non-empty strided view spans."""
     first = t.data_ptr()
-    last = sum((n - 1) * s for n, s in zip(t.shape, t.stride()))
-    return first, first + (last + 1) * t.element_size() - 1
+    return first, first + build.last_byte(t)
 
 
 def _check_disjoint(reads, writes, name):
@@ -102,8 +101,10 @@ def detail_planes(y, l):
 
 
 def _planes_args(planes):
+    """The C interface's plane arrays: the planes (their pointers) and
+    their batch and row strides."""
     k = len(planes)
-    return ((ctypes.c_void_p * k)(*[p.data_ptr() for p in planes]),
+    return (tuple(planes),
             (ctypes.c_int64 * k)(*[p.stride(0) for p in planes]),
             (ctypes.c_int64 * k)(*[p.stride(1) for p in planes]))
 
@@ -311,32 +312,42 @@ def fw_smem(wt, dtype) -> int:
     return 2 * rows * _TC * acc + 2 * (rows * ps + _FW_PAD) * size + table
 
 
-def _launch_fw(x, wt, outs, stream):
+def _fw_plan(x, wt, outs):
+    """Kernel A's launch plan for this call's signature."""
     table = band_table(wt, False, x.dtype, x.device)
     if fw_smem(wt, x.dtype) > SMEM_LIMIT:
         raise ValueError(f"level_fw: the bands of {wt.name} reach too far "
                          "for the kernel's shared-memory tile")
     B, m, n = x.shape
-    ptrs, sb, sr = _planes_args(outs)
-    build.launch("level_fw", build.dtype_code(x.dtype), B, m, n, x.data_ptr(),
-                 x.stride(0), x.stride(1), ptrs, sb, sr, table.offs.data_ptr(),
-                 table.coefs.data_ptr(), *table.counts, table.dmin, table.span,
-                 stream)
+    return build.Plan("level_fw", (
+        build.dtype_code(x.dtype), B, m, n, x, x.stride(0), x.stride(1),
+        *_planes_args(outs), table.offs.data_ptr(), table.coefs.data_ptr(),
+        *table.counts, table.dmin, table.span), (x, *outs), reads=(0,),
+        keep=table)
 
 
-def _launch_inv(quads, wt, out, stream):
+def _inv_plan(quads, wt, out):
+    """Kernel B's launch plan for this call's signature."""
     ll = quads[0]
     table = band_table(wt, True, ll.dtype, ll.device)
     if inv_smem(wt, ll.dtype) > SMEM_LIMIT:
         raise ValueError(f"level_inv: the bands of {wt.name} reach too far "
                          "for the kernel's shared-memory tile")
     B, mh, nh = ll.shape
-    ptrs, sb, sr = _planes_args(quads)
-    build.launch("level_inv", build.dtype_code(ll.dtype), B, mh, nh, ptrs, sb,
-                 sr, out.data_ptr(), out.stride(0), out.stride(1),
-                 table.offs.data_ptr(), table.coefs.data_ptr(),
-                 (ctypes.c_int * 4)(*table.counts), table.dmin, table.span,
-                 stream)
+    return build.Plan("level_inv", (
+        build.dtype_code(ll.dtype), B, mh, nh, *_planes_args(quads), out,
+        out.stride(0), out.stride(1), table.offs.data_ptr(),
+        table.coefs.data_ptr(), (ctypes.c_int * 4)(*table.counts),
+        table.dmin, table.span), (*quads, out), reads=(0, 1, 2, 3),
+        keep=table)
+
+
+def _launch_fw(x, wt, outs, stream):
+    _fw_plan(x, wt, outs).call((x, *outs), stream)
+
+
+def _launch_inv(quads, wt, out, stream):
+    _inv_plan(quads, wt, out).call((*quads, out), stream)
 
 
 def level_fw(x, wt, outs=None):
@@ -344,16 +355,21 @@ def level_fw(x, wt, outs=None):
     planes of ``(B, m/2, n/2)`` with unit column stride (allocated when
     None).  The outputs may not overlap ``x``.  Returns the four planes."""
     with tracing.span("level_fw"):
-        _check_input(x)
-        outs = _fw_outs(x, outs)
-        _check_disjoint((x,), outs, "level_fw")
-        if x.device.type == "cpu":
-            return level_fw_plain(x, wt, outs)
-        if x.shape[0]:
-            with torch.cuda.device(x.device):
-                _launch_fw(x, wt, outs,
-                           torch.cuda.current_stream().cuda_stream)
-            LAUNCHES["level_fw"] += 1
+        key = build.key("level_fw", wt, x, outs)
+        plan = build.planned(key)
+        if plan is None:
+            _check_input(x)
+            outs = _fw_outs(x, outs)
+            _check_disjoint((x,), outs, "level_fw")
+            if x.device.type == "cpu":
+                return level_fw_plain(x, wt, outs)
+            if not x.shape[0]:
+                return outs
+            plan = build.store(key, _fw_plan(x, wt, outs))
+        else:                       # the miss hands back a tuple too
+            outs = _fw_outs(x, None) if outs is None else tuple(outs)
+        plan.launch((x, *outs))
+        LAUNCHES["level_fw"] += 1
         return outs
 
 
@@ -363,13 +379,18 @@ def level_inv(ll, lh, hl, hh, wt, out=None):
     which may not overlap the planes.  Returns ``out``."""
     with tracing.span("level_inv"):
         quads = (ll, lh, hl, hh)
-        out = _inv_args(quads, out)
-        _check_disjoint(quads, (out,), "level_inv")
-        if ll.device.type == "cpu":
-            return level_inv_plain(ll, lh, hl, hh, wt, out)
-        if ll.shape[0]:
-            with torch.cuda.device(ll.device):
-                _launch_inv(quads, wt, out,
-                            torch.cuda.current_stream().cuda_stream)
-            LAUNCHES["level_inv"] += 1
+        key = build.key("level_inv", wt, quads, out)
+        plan = build.planned(key)
+        if plan is None:
+            out = _inv_args(quads, out)
+            _check_disjoint(quads, (out,), "level_inv")
+            if ll.device.type == "cpu":
+                return level_inv_plain(ll, lh, hl, hh, wt, out)
+            if not ll.shape[0]:
+                return out
+            plan = build.store(key, _inv_plan(quads, wt, out))
+        elif out is None:
+            out = _inv_args(quads, None)
+        plan.launch((*quads, out))
+        LAUNCHES["level_inv"] += 1
         return out

@@ -310,23 +310,27 @@ def _taps(wt, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
 
 
 def _rows_args(t):
-    return t.data_ptr(), t.stride(0), t.stride(1)
+    return t, t.stride(0), t.stride(1)
 
 
-def _launch_fw(v, wt, j, v1, w1, stream):
+def _fw_plan(v, wt, j, v1, w1):
+    """Kernel K's launch plan for this call's signature."""
     taps = _taps(wt, v.dtype, v.device)
     B, N = v.shape
-    build.launch("modwt_fw", build.dtype_code(v.dtype), B, N, 2 ** (j - 1) % N,
-                 *_rows_args(v), *_rows_args(v1), *_rows_args(w1),
-                 taps.data_ptr(), taps.numel() // 2, stream)
+    return build.Plan("modwt_fw", (
+        build.dtype_code(v.dtype), B, N, 2 ** (j - 1) % N, *_rows_args(v),
+        *_rows_args(v1), *_rows_args(w1), taps.data_ptr(), taps.numel() // 2),
+        (v, v1, w1), reads=(0,), keep=taps)
 
 
-def _launch_inv(v1, w1, wt, j, out, stream):
+def _inv_plan(v1, w1, wt, j, out):
+    """Kernel M's launch plan for this call's signature."""
     taps = _taps(wt, v1.dtype, v1.device)
     B, N = v1.shape
-    build.launch("modwt_inv", build.dtype_code(v1.dtype), B, N,
-                 2 ** (j - 1) % N, *_rows_args(v1), *_rows_args(w1),
-                 *_rows_args(out), taps.data_ptr(), taps.numel() // 2, stream)
+    return build.Plan("modwt_inv", (
+        build.dtype_code(v1.dtype), B, N, 2 ** (j - 1) % N, *_rows_args(v1),
+        *_rows_args(w1), *_rows_args(out), taps.data_ptr(),
+        taps.numel() // 2), (v1, w1, out), reads=(0, 1), keep=taps)
 
 
 @lru_cache(maxsize=None)
@@ -336,22 +340,34 @@ def _plan_args(plan):
                                plan.taps), plan.smem)
 
 
-def _launch_levels(x, wt, L, out, stream, plan=None):
+def _levels_plan(x, wt, L, out, plan=None):
+    """The all-levels forward's launch plan for this call's signature."""
     taps = _taps(wt, x.dtype, x.device)
     B, N = x.shape
     plan = plan or _plan_of(x, wt, L)
-    build.launch("modwt_fw_levels", build.dtype_code(x.dtype), B, N, L,
-                 *_rows_args(x), out.data_ptr(), out.stride(0),
-                 taps.data_ptr(), taps.numel() // 2, *_plan_args(plan), stream)
+    return build.Plan("modwt_fw_levels", (
+        build.dtype_code(x.dtype), B, N, L, *_rows_args(x), out,
+        out.stride(0), taps.data_ptr(), taps.numel() // 2, *_plan_args(plan)),
+        (x, out), reads=(0,), keep=taps)
 
 
-def _launch_inv_levels(xw, wt, out, stream, plan=None):
+def _inv_levels_plan(xw, wt, out, plan=None):
+    """The all-levels inverse's launch plan for this call's signature."""
     taps = _taps(wt, xw.dtype, xw.device)
     B, N, L1 = xw.shape
     plan = plan or _inv_plan_of(xw, wt)
-    build.launch("modwt_inv_levels", build.dtype_code(xw.dtype), B, N, L1 - 1,
-                 xw.data_ptr(), xw.stride(0), out.data_ptr(), out.stride(0),
-                 taps.data_ptr(), taps.numel() // 2, *_plan_args(plan), stream)
+    return build.Plan("modwt_inv_levels", (
+        build.dtype_code(xw.dtype), B, N, L1 - 1, xw, xw.stride(0), out,
+        out.stride(0), taps.data_ptr(), taps.numel() // 2, *_plan_args(plan)),
+        (xw, out), reads=(0,), keep=taps)
+
+
+def _launch_levels(x, wt, L, out, stream, plan=None):
+    _levels_plan(x, wt, L, out, plan).call((x, out), stream)
+
+
+def _launch_inv_levels(xw, wt, out, stream, plan=None):
+    _inv_levels_plan(xw, wt, out, plan).call((xw, out), stream)
 
 
 def modwt_fw_levels(x, wt, L: int, out=None):
@@ -361,19 +377,24 @@ def modwt_fw_levels(x, wt, L: int, out=None):
     in column L.  Raises for rows that :func:`modwt_plan` does not fit;
     :func:`modwt` runs those one level at a time.  Returns ``out``."""
     with tracing.span("modwt_fw_levels"):
-        out = _levels_out(x, L, out)
-        _check_disjoint((x,), (out,), "modwt_fw_levels")
-        if not _plan_of(x, wt, L).fits:
-            raise ValueError(f"modwt_fw_levels: rows of {x.shape[1]} "
-                             f"{x.dtype} through {L} levels fit no cluster "
-                             "(modwt_plan)")
-        if x.device.type == "cpu":
-            return modwt_fw_levels_plain(x, wt, L, out)
-        if x.numel():
-            with torch.cuda.device(x.device):
-                _launch_levels(x, wt, L, out,
-                               torch.cuda.current_stream().cuda_stream)
-            LAUNCHES["modwt_fw_levels"] += 1
+        key = build.key("modwt_fw_levels", wt, L, x, out)
+        plan = build.planned(key)
+        if plan is None:
+            out = _levels_out(x, L, out)
+            _check_disjoint((x,), (out,), "modwt_fw_levels")
+            if not _plan_of(x, wt, L).fits:
+                raise ValueError(f"modwt_fw_levels: rows of {x.shape[1]} "
+                                 f"{x.dtype} through {L} levels fit no "
+                                 "cluster (modwt_plan)")
+            if x.device.type == "cpu":
+                return modwt_fw_levels_plain(x, wt, L, out)
+            if not x.numel():
+                return out
+            plan = build.store(key, _levels_plan(x, wt, L, out))
+        elif out is None:
+            out = _levels_out(x, L, None)
+        plan.launch((x, out))
+        LAUNCHES["modwt_fw_levels"] += 1
         return out
 
 
@@ -384,19 +405,24 @@ def modwt_inv_levels(xw, wt, out=None):
     ``xw``.  Raises for rows that :func:`modwt_inv_plan` does not fit;
     :func:`imodwt` runs those one level at a time.  Returns ``out``."""
     with tracing.span("modwt_inv_levels"):
-        out = _inv_levels_in(xw, out)
-        _check_disjoint((xw,), (out,), "modwt_inv_levels")
-        if not _inv_plan_of(xw, wt).fits:
-            raise ValueError(f"modwt_inv_levels: rows of {xw.shape[1]} "
-                             f"{xw.dtype} through {xw.shape[2] - 1} levels "
-                             "fit no cluster (modwt_inv_plan)")
-        if xw.device.type == "cpu":
-            return modwt_inv_levels_plain(xw, wt, out)
-        if xw.numel():
-            with torch.cuda.device(xw.device):
-                _launch_inv_levels(xw, wt, out,
-                                   torch.cuda.current_stream().cuda_stream)
-            LAUNCHES["modwt_inv_levels"] += 1
+        key = build.key("modwt_inv_levels", wt, xw, out)
+        plan = build.planned(key)
+        if plan is None:
+            out = _inv_levels_in(xw, out)
+            _check_disjoint((xw,), (out,), "modwt_inv_levels")
+            if not _inv_plan_of(xw, wt).fits:
+                raise ValueError(f"modwt_inv_levels: rows of {xw.shape[1]} "
+                                 f"{xw.dtype} through {xw.shape[2] - 1} "
+                                 "levels fit no cluster (modwt_inv_plan)")
+            if xw.device.type == "cpu":
+                return modwt_inv_levels_plain(xw, wt, out)
+            if not xw.numel():
+                return out
+            plan = build.store(key, _inv_levels_plan(xw, wt, out))
+        elif out is None:
+            out = _inv_levels_in(xw, None)
+        plan.launch((xw, out))
+        LAUNCHES["modwt_inv_levels"] += 1
         return out
 
 
@@ -405,15 +431,20 @@ def modwt_fw(v, wt, j: int, v1=None, w1=None):
     ``w1`` (detail), ``(B, N)`` views with any strides (allocated when both
     are None), which may not overlap ``v``.  Returns ``(v1, w1)``."""
     with tracing.span("modwt_fw", j):
-        v1, w1 = _fw_outs(v, j, v1, w1)
-        _check_disjoint((v,), (v1, w1), "modwt_fw")
-        if v.device.type == "cpu":
-            return modwt_fw_plain(v, wt, j, v1, w1)
-        if v.numel():
-            with torch.cuda.device(v.device):
-                _launch_fw(v, wt, j, v1, w1,
-                           torch.cuda.current_stream().cuda_stream)
-            LAUNCHES["modwt_fw"] += 1
+        key = build.key("modwt_fw", wt, j, v, v1, w1)
+        plan = build.planned(key)
+        if plan is None:
+            v1, w1 = _fw_outs(v, j, v1, w1)
+            _check_disjoint((v,), (v1, w1), "modwt_fw")
+            if v.device.type == "cpu":
+                return modwt_fw_plain(v, wt, j, v1, w1)
+            if not v.numel():
+                return v1, w1
+            plan = build.store(key, _fw_plan(v, wt, j, v1, w1))
+        elif v1 is None:
+            v1, w1 = _fw_outs(v, j, None, None)
+        plan.launch((v, v1, w1))
+        LAUNCHES["modwt_fw"] += 1
         return v1, w1
 
 
@@ -421,15 +452,20 @@ def modwt_inv(v1, w1, wt, j: int, out=None):
     """Inverse of :func:`modwt_fw`: ``(v1, w1)`` -> ``out (B, N)`` (any
     strides; allocated when None), which may not overlap them."""
     with tracing.span("modwt_inv", j):
-        out = _inv_out(v1, w1, j, out)
-        _check_disjoint((v1, w1), (out,), "modwt_inv")
-        if v1.device.type == "cpu":
-            return modwt_inv_plain(v1, w1, wt, j, out)
-        if v1.numel():
-            with torch.cuda.device(v1.device):
-                _launch_inv(v1, w1, wt, j, out,
-                            torch.cuda.current_stream().cuda_stream)
-            LAUNCHES["modwt_inv"] += 1
+        key = build.key("modwt_inv", wt, j, v1, w1, out)
+        plan = build.planned(key)
+        if plan is None:
+            out = _inv_out(v1, w1, j, out)
+            _check_disjoint((v1, w1), (out,), "modwt_inv")
+            if v1.device.type == "cpu":
+                return modwt_inv_plain(v1, w1, wt, j, out)
+            if not v1.numel():
+                return out
+            plan = build.store(key, _inv_plan(v1, w1, wt, j, out))
+        elif out is None:
+            out = _inv_out(v1, w1, j, None)
+        plan.launch((v1, w1, out))
+        LAUNCHES["modwt_inv"] += 1
         return out
 
 

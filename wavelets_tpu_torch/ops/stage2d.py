@@ -217,14 +217,19 @@ def stage2_fw_plain(x, wt, outs=None):
     return outs
 
 
-def _launch(x, wt, outs, tile, stream, strips=True):
+def _plan(x, wt, outs, tile, strips=True):
+    """Kernel N's launch plan for this call's signature."""
     table = band_table(wt, False, x.dtype, x.device)
     B, m, n = x.shape
-    ptrs, sb, sr = _planes_args(outs)
-    build.launch("stage2_fw", build.dtype_code(x.dtype), B, m, n, x.data_ptr(),
-                 x.stride(0), x.stride(1), ptrs, sb, sr, table.offs.data_ptr(),
-                 table.coefs.data_ptr(), *table.counts, table.dmin, table.span,
-                 tile, int(strips), stream)
+    return build.Plan("stage2_fw", (
+        build.dtype_code(x.dtype), B, m, n, x, x.stride(0), x.stride(1),
+        *_planes_args(outs), table.offs.data_ptr(), table.coefs.data_ptr(),
+        *table.counts, table.dmin, table.span, tile, int(strips)),
+        (x, *outs), reads=(0,), keep=table)
+
+
+def _launch(x, wt, outs, tile, stream, strips=True):
+    _plan(x, wt, outs, tile, strips).call((x, *outs), stream)
 
 
 def stage2_fw(x, wt, outs=None):
@@ -235,18 +240,24 @@ def stage2_fw(x, wt, outs=None):
     :func:`stage_tile`'s tile.  Raises for a wavelet whose window fits no
     tile.  Returns the seven planes."""
     with tracing.span("stage2_fw"):
-        _check_input(x)
-        outs = _outs(x, outs)
-        _check_disjoint((x,), outs, "stage2_fw")
-        if x.device.type == "cpu":
-            return stage2_fw_plain(x, wt, outs)
-        tile = stage_tile(wt, x.dtype)
-        if tile is None:
-            raise ValueError(f"stage2_fw: the bands of {wt.name} reach too "
-                             "far for the kernel's shared-memory window")
-        if x.shape[0]:
-            with torch.cuda.device(x.device):
-                _launch(x, wt, outs, tile,
-                        torch.cuda.current_stream().cuda_stream)
-            LAUNCHES["stage2_fw"] += 1
+        key = build.key("stage2_fw", wt, x, outs)
+        plan = build.planned(key)
+        if plan is None:
+            _check_input(x)
+            outs = _outs(x, outs)
+            _check_disjoint((x,), outs, "stage2_fw")
+            if x.device.type == "cpu":
+                return stage2_fw_plain(x, wt, outs)
+            tile = stage_tile(wt, x.dtype)
+            if tile is None:
+                raise ValueError(f"stage2_fw: the bands of {wt.name} reach "
+                                 "too far for the kernel's shared-memory "
+                                 "window")
+            if not x.shape[0]:
+                return outs
+            plan = build.store(key, _plan(x, wt, outs, tile))
+        else:                       # the miss hands back a tuple too
+            outs = _outs(x, None) if outs is None else tuple(outs)
+        plan.launch((x, *outs))
+        LAUNCHES["stage2_fw"] += 1
         return outs

@@ -226,24 +226,35 @@ def tail1d_inv_plain(y, wt, L: int, out=None):
     return out
 
 
-def _launch_fw(x, wt, L, out, stream, staged=True):
+def _fw_plan(x, wt, L, out, staged=True):
+    """Kernel G's launch plan for this call's signature (``staged=False``:
+    the first form)."""
     B, n = x.shape
     table = band_table(wt, False, x.dtype, x.device)
-    build.launch("tail1d_fw", build.dtype_code(x.dtype), B, n, L, x.data_ptr(),
-                 x.stride(0), out.data_ptr(), out.stride(0),
-                 table.offs.data_ptr(), table.coefs.data_ptr(), *table.counts,
-                 table.dmin, table.span, fw_window(wt) if staged else 0,
-                 stream)
+    return build.Plan("tail1d_fw", (
+        build.dtype_code(x.dtype), B, n, L, x, x.stride(0), out,
+        out.stride(0), table.offs.data_ptr(), table.coefs.data_ptr(),
+        *table.counts, table.dmin, table.span,
+        fw_window(wt) if staged else 0), (x, out), keep=table)
+
+
+def _inv_plan(y, wt, L, out, staged=True):
+    """Kernel H's launch plan for this call's signature."""
+    B, n = y.shape
+    table = band_table(wt, True, y.dtype, y.device)
+    return build.Plan("tail1d_inv", (
+        build.dtype_code(y.dtype), B, n, L, y, y.stride(0), out,
+        out.stride(0), table.offs.data_ptr(), table.coefs.data_ptr(),
+        (ctypes.c_int * 4)(*table.counts), table.dmin, table.span,
+        inv_window(wt) if staged else 0), (y, out), keep=table)
+
+
+def _launch_fw(x, wt, L, out, stream, staged=True):
+    _fw_plan(x, wt, L, out, staged).call((x, out), stream)
 
 
 def _launch_inv(y, wt, L, out, stream, staged=True):
-    B, n = y.shape
-    table = band_table(wt, True, y.dtype, y.device)
-    build.launch("tail1d_inv", build.dtype_code(y.dtype), B, n, L,
-                 y.data_ptr(), y.stride(0), out.data_ptr(), out.stride(0),
-                 table.offs.data_ptr(), table.coefs.data_ptr(),
-                 (ctypes.c_int * 4)(*table.counts), table.dmin, table.span,
-                 inv_window(wt) if staged else 0, stream)
+    _inv_plan(y, wt, L, out, staged).call((y, out), stream)
 
 
 def tail1d_fw(x, wt, L: int, out=None):
@@ -252,15 +263,20 @@ def tail1d_fw(x, wt, L: int, out=None):
     :func:`fw_window` gives a window, else the first form.  Raises for a
     row that does not fit (:func:`tail1d_fits`).  Returns ``out``."""
     with tracing.span("tail1d_fw"):
-        out = _check(x, L, out, "tail1d_fw")
-        _check_fits(x, wt, False, "tail1d_fw")
-        if x.device.type == "cpu":
-            return tail1d_fw_plain(x, wt, L, out)
-        if x.shape[0]:
-            with torch.cuda.device(x.device):
-                _launch_fw(x, wt, L, out,
-                           torch.cuda.current_stream().cuda_stream)
-            LAUNCHES["tail1d_fw"] += 1
+        key = build.key("tail1d_fw", wt, L, x, out)
+        plan = build.planned(key)
+        if plan is None:
+            out = _check(x, L, out, "tail1d_fw")
+            _check_fits(x, wt, False, "tail1d_fw")
+            if x.device.type == "cpu":
+                return tail1d_fw_plain(x, wt, L, out)
+            if not x.shape[0]:
+                return out
+            plan = build.store(key, _fw_plan(x, wt, L, out))
+        elif out is None:
+            out = _check(x, L, None, "tail1d_fw")
+        plan.launch((x, out))
+        LAUNCHES["tail1d_fw"] += 1
         return out
 
 
@@ -270,13 +286,18 @@ def tail1d_inv(y, wt, L: int, out=None):
     :func:`inv_window` gives a window, else the first form.  Returns
     ``out``."""
     with tracing.span("tail1d_inv"):
-        out = _check(y, L, out, "tail1d_inv")
-        _check_fits(y, wt, True, "tail1d_inv")
-        if y.device.type == "cpu":
-            return tail1d_inv_plain(y, wt, L, out)
-        if y.shape[0]:
-            with torch.cuda.device(y.device):
-                _launch_inv(y, wt, L, out,
-                            torch.cuda.current_stream().cuda_stream)
-            LAUNCHES["tail1d_inv"] += 1
+        key = build.key("tail1d_inv", wt, L, y, out)
+        plan = build.planned(key)
+        if plan is None:
+            out = _check(y, L, out, "tail1d_inv")
+            _check_fits(y, wt, True, "tail1d_inv")
+            if y.device.type == "cpu":
+                return tail1d_inv_plain(y, wt, L, out)
+            if not y.shape[0]:
+                return out
+            plan = build.store(key, _inv_plan(y, wt, L, out))
+        elif out is None:
+            out = _check(y, L, None, "tail1d_inv")
+        plan.launch((y, out))
+        LAUNCHES["tail1d_inv"] += 1
         return out

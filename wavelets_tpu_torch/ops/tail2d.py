@@ -222,26 +222,37 @@ def _plan_args(plan):
                                *plan.halo), plan.smem)
 
 
-def _launch_fw(x, wt, L, out, stream, plan=None):
+def _fw_plan(x, wt, L, out, plan=None):
+    """Kernel C's launch plan for this call's signature (``plan``: the
+    tail's, else :func:`tail_plan`'s)."""
     B, m, n = x.shape
     plan = plan or tail_plan(B, m, n, L, wt, x.dtype)
     table = band_table(wt, False, x.dtype, x.device)
-    build.launch("tail_fw", build.dtype_code(x.dtype), B, m, n, L,
-                 x.data_ptr(), x.stride(0), x.stride(1), out.data_ptr(),
-                 out.stride(0), out.stride(1), table.offs.data_ptr(),
-                 table.coefs.data_ptr(), *table.counts, *_plan_args(plan),
-                 stream)
+    return build.Plan("tail_fw", (
+        build.dtype_code(x.dtype), B, m, n, L, x, x.stride(0), x.stride(1),
+        out, out.stride(0), out.stride(1), table.offs.data_ptr(),
+        table.coefs.data_ptr(), *table.counts, *_plan_args(plan)),
+        (x, out), keep=table)
 
 
-def _launch_inv(y, wt, L, out, stream, plan=None):
+def _inv_plan(y, wt, L, out, plan=None):
+    """Kernel D's launch plan for this call's signature."""
     B, m, n = y.shape
     plan = plan or tail_plan(B, m, n, L, wt, y.dtype, True)
     table = band_table(wt, True, y.dtype, y.device)
-    build.launch("tail_inv", build.dtype_code(y.dtype), B, m, n, L,
-                 y.data_ptr(), y.stride(0), y.stride(1), out.data_ptr(),
-                 out.stride(0), out.stride(1), table.offs.data_ptr(),
-                 table.coefs.data_ptr(), (ctypes.c_int * 4)(*table.counts),
-                 *_plan_args(plan), stream)
+    return build.Plan("tail_inv", (
+        build.dtype_code(y.dtype), B, m, n, L, y, y.stride(0), y.stride(1),
+        out, out.stride(0), out.stride(1), table.offs.data_ptr(),
+        table.coefs.data_ptr(), (ctypes.c_int * 4)(*table.counts),
+        *_plan_args(plan)), (y, out), keep=table)
+
+
+def _launch_fw(x, wt, L, out, stream, plan=None):
+    _fw_plan(x, wt, L, out, plan).call((x, out), stream)
+
+
+def _launch_inv(y, wt, L, out, stream, plan=None):
+    _inv_plan(y, wt, L, out, plan).call((y, out), stream)
 
 
 def tail_fw(x, wt, L: int, out=None):
@@ -249,15 +260,20 @@ def tail_fw(x, wt, L: int, out=None):
     ``(B, m, n)`` (allocated when None).  Raises for an array that does not
     fit (:func:`tail_fits`).  Returns ``out``."""
     with tracing.span("tail_fw"):
-        out = _check(x, L, out, "tail_fw")
-        _check_fits(x, wt, False, "tail_fw")
-        if x.device.type == "cpu":
-            return tail_fw_plain(x, wt, L, out)
-        if x.shape[0]:
-            with torch.cuda.device(x.device):
-                _launch_fw(x, wt, L, out,
-                           torch.cuda.current_stream().cuda_stream)
-            LAUNCHES["tail_fw"] += 1
+        key = build.key("tail_fw", wt, L, x, out)
+        plan = build.planned(key)
+        if plan is None:
+            out = _check(x, L, out, "tail_fw")
+            _check_fits(x, wt, False, "tail_fw")
+            if x.device.type == "cpu":
+                return tail_fw_plain(x, wt, L, out)
+            if not x.shape[0]:
+                return out
+            plan = build.store(key, _fw_plan(x, wt, L, out))
+        elif out is None:
+            out = _check(x, L, None, "tail_fw")
+        plan.launch((x, out))
+        LAUNCHES["tail_fw"] += 1
         return out
 
 
@@ -265,13 +281,18 @@ def tail_inv(y, wt, L: int, out=None):
     """Inverse of :func:`tail_fw`: packed ``y (B, m, n)`` -> ``out``
     ``(B, m, n)`` (allocated when None), in one launch.  Returns ``out``."""
     with tracing.span("tail_inv"):
-        out = _check(y, L, out, "tail_inv")
-        _check_fits(y, wt, True, "tail_inv")
-        if y.device.type == "cpu":
-            return tail_inv_plain(y, wt, L, out)
-        if y.shape[0]:
-            with torch.cuda.device(y.device):
-                _launch_inv(y, wt, L, out,
-                            torch.cuda.current_stream().cuda_stream)
-            LAUNCHES["tail_inv"] += 1
+        key = build.key("tail_inv", wt, L, y, out)
+        plan = build.planned(key)
+        if plan is None:
+            out = _check(y, L, out, "tail_inv")
+            _check_fits(y, wt, True, "tail_inv")
+            if y.device.type == "cpu":
+                return tail_inv_plain(y, wt, L, out)
+            if not y.shape[0]:
+                return out
+            plan = build.store(key, _inv_plan(y, wt, L, out))
+        elif out is None:
+            out = _check(y, L, None, "tail_inv")
+        plan.launch((y, out))
+        LAUNCHES["tail_inv"] += 1
         return out

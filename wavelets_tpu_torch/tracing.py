@@ -5,7 +5,7 @@ The public calls of ``transforms.py`` open the root spans (``dwt``,
 ``idwt``, ...), the drivers one span each (``pyramid2d.dwt2``, ...), and
 every launch wrapper of ``ops/`` one span named as its ``LAUNCHES`` key,
 with one child ``<key>.call`` around the call into the kernels' library
-(:func:`ops.build.launch`).  Tracing is off at import; :func:`enable` and
+(:meth:`ops.build.Plan.call`).  Tracing is off at import; :func:`enable` and
 :func:`disable` switch it.  Off, :func:`span` makes one global check and
 hands back a shared context that does nothing.  On, each span is kept in
 memory, up to a bound (beyond it spans are counted as dropped), until
@@ -22,7 +22,8 @@ maps a stamp onto the Unix-epoch clock of the profiler's host events
 Counters are the ops modules' dicts, incremented whether tracing is on or
 not: ``LAUNCHES`` and ``PLAIN_CALLS`` of each launch wrapper's module,
 ``scratch.ALLOCATED`` (bytes the drivers' scratch buffers took),
-``parallel.sharded.STATS`` and ``parallel.mesh.COPIES``.
+``parallel.sharded.STATS``, ``parallel.mesh.COPIES`` and ``build.PLANS``
+(the launch plans' hits and misses, :class:`ops.build.Plan`).
 :func:`counters` reads them all at once.
 
 Spans are recorded for the thread that calls; the port's calls are made
@@ -53,6 +54,7 @@ COUNTERS = {
     "ops.scratch": ("ALLOCATED",),
     "parallel.sharded": ("STATS",),
     "parallel.mesh": ("COPIES",),
+    "ops.build": ("PLANS",),
 }
 
 
