@@ -91,6 +91,18 @@ exits non-zero:
                   wavelet, and each shape once): N against its plain
                   version, which sums as A does, and bit for bit against
                   two A launches.
+  2g. graphs   -- the 2-D driver's CUDA graphs (ops/graph.py): on the
+                  level, stage and split routes, in f32, f64 and bf16, at
+                  1024^2 L10 and 256^2 with B = 8 (and the level route at
+                  16384^2 L8 in f32), 20 forward and 20 inverse calls of
+                  each signature over 4 rotating inputs, every output kept
+                  to the end, each bit for bit equal to the wrappers' output
+                  for its input (a store that keeps no signature); one
+                  more call on a side stream; one inside a caller's
+                  torch.cuda.graph capture (it must run the wrappers, and
+                  the caller's graph must replay to the same bits); and a
+                  profiled stretch of replays whose kernels must equal the
+                  rise of the launch counters.
   3. main      -- dwt/idwt of the 16384^2 float32 image, cdf97 lifting, 8
                   levels, through the public entry points; the launch counts
                   show the route, the round trip is checked, and smaller
@@ -218,7 +230,7 @@ import wavelets_tpu_torch as w
 from wavelets_tpu_torch import parallel
 from wavelets_tpu_torch import profiling as P
 from wavelets_tpu_torch.parallel import mesh as pmesh, sharded as psharded
-from wavelets_tpu_torch.ops import (axis0, bands, build, dwt1d, dwt3d,
+from wavelets_tpu_torch.ops import (axis0, bands, build, dwt1d, dwt3d, graph,
                                     level1d, level2d, lifting, modwt1d,
                                     pyramid2d, rowcol2d, stage2d, tail1d,
                                     tail2d)
@@ -1737,6 +1749,156 @@ def stage_fresh_draws(dev):
     require(equal, "N bit-equal to two A launches on the fresh bf16 draws")
     return {"seed": STAGE_FRESH_SEED, "cases": cases, "worst_rel_err": worst,
             "bit_equal_to_two_A_launches": equal}
+
+
+# the graph store's cases: (B, m, n, L), each on every route and dtype but
+# the last, which runs once (level route, f32)
+GRAPH_CASES = ((1, 1024, 1024, 10), (8, 256, 256, 6))
+GRAPH_BIG = (1, SIZE, SIZE, LEVELS)
+GRAPH_CALLS, GRAPH_INPUTS = 20, 4
+
+
+@contextlib.contextmanager
+def graph_store(limit):
+    """The 2-D driver with a store of its own, keeping at most ``limit``
+    signatures (0: every call runs the wrappers), and a counter of its
+    own; yields the counter."""
+    saved = pyramid2d._graphs
+    counter = dict.fromkeys(pyramid2d.GRAPHS, 0)
+    pyramid2d._graphs = graph.Store(counter, "pyramid2d.replay", limit)
+    try:
+        yield counter
+    finally:
+        pyramid2d._graphs = saved
+
+
+def graph_signature(fn, xs, wt, L, route):
+    """``GRAPH_CALLS`` calls of ``fn`` over the rotating inputs ``xs``,
+    every output kept, each held bit for bit against the wrappers' output
+    for its input; then one call on a side stream.  Returns the rise of
+    the store's counter and the number of outputs checked."""
+    counter = pyramid2d._graphs.counter
+    with graph_store(0):
+        refs = [fn(x, wt, L, route=route) for x in xs]
+    before = dict(counter)
+    outs = [fn(xs[i % len(xs)], wt, L, route=route)
+            for i in range(GRAPH_CALLS)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        outs.append(fn(xs[1], wt, L, route=route))
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    for i, o in enumerate(outs):
+        ref = refs[1 if i == GRAPH_CALLS else i % len(xs)]
+        require(torch.equal(o, ref),
+                f"graph call {i} equals the wrappers' output bit for bit")
+    rise = {k: counter[k] - before[k] for k in before}
+    return rise, len(outs)
+
+
+def graph_user_capture(xs, wt, L):
+    """A forward call inside a caller's torch.cuda.graph capture runs the
+    wrappers, and the caller's graph replays to the wrappers' bits."""
+    counter = pyramid2d._graphs.counter
+    with graph_store(0):
+        refs = [pyramid2d.dwt2(x, wt, L) for x in xs[:2]]
+    static = xs[0].clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):          # warm-up, as torch asks
+        pyramid2d.dwt2(static, wt, L)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    before = dict(counter)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        got = pyramid2d.dwt2(static, wt, L)
+    rise = {k: counter[k] - before[k] for k in before}
+    require(rise == {"captures": 0, "replays": 0, "fallbacks": 0,
+                     "plain": 1},
+            f"a call under a caller's capture runs the wrappers: {rise}")
+    for i in (1, 0):
+        static.copy_(xs[i])
+        g.replay()
+        torch.cuda.synchronize()
+        require(torch.equal(got, refs[i]),
+                "the caller's graph replays to the wrappers' bits")
+    return rise
+
+
+def graph_trace(xs, wt, L):
+    """Replays under the profiler: the program's kernels in the trace
+    equal the rise of the launch counters."""
+    counter = pyramid2d._graphs.counter
+    for x in xs:
+        pyramid2d.idwt2(pyramid2d.dwt2(x, wt, L), wt, L)
+    torch.cuda.synchronize()
+    launches0 = sum(counts()[0].values())
+    before = dict(counter)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for x in xs * 5:
+            pyramid2d.idwt2(pyramid2d.dwt2(x, wt, L), wt, L)
+        torch.cuda.synchronize()
+    rise = sum(counts()[0].values()) - launches0
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset"))]
+    replays = counter["replays"] - before["replays"]
+    require(replays == 2 * len(xs) * 5, f"every call replayed: {replays}")
+    require(len(kernels) == rise,
+            f"the trace holds {len(kernels)} kernels where the launch "
+            f"counters rose by {rise}")
+    return {"replays": replays, "kernels": len(kernels), "launches": rise}
+
+
+def phase_graphs(dev):
+    """Phase 2g (the module docstring), on a store of its own."""
+    with graph_store(graph.GRAPH_LIMIT) as counter:
+        graph_cases(dev, counter)
+
+
+def graph_cases(dev, counter):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    rows, checked = [], 0
+    cases = [(c, dt, route) for c in GRAPH_CASES
+             for dt in (torch.float32, torch.float64, torch.bfloat16)
+             for route in pyramid2d.ROUTES]
+    cases.append((GRAPH_BIG, torch.float32, "level"))
+    wt = wavelet("cdf97", "lifting")
+    for (B, m, n, L), dt, route in cases:
+        xs = [torch.randn((B, m, n), generator=gen, device=dev).to(dt)
+              for _ in range(GRAPH_INPUTS)]
+        for name, fn, r in (("dwt2", pyramid2d.dwt2, route),
+                            ("idwt2", pyramid2d.idwt2,
+                             "level" if route == "stage" else route)):
+            rise, n_out = graph_signature(fn, xs, wt, L, r)
+            # a signature's first call runs the wrappers, its second
+            # captures; a signature met before (the stage route's
+            # inverse is the level route's) replays from its first
+            fresh = not (name == "idwt2" and route == "stage")
+            want = {"captures": int(fresh), "replays":
+                    GRAPH_CALLS + 1 - 2 * fresh, "fallbacks": 0,
+                    "plain": int(fresh)}
+            refused = [e.refused for e in pyramid2d._graphs.entries.values()
+                       if e.refused is not None]
+            require(rise == want, f"{name} {route} {dt} {(B, m, n, L)}: "
+                    f"calls by path {rise}, expected {want}; refused: "
+                    f"{refused}")
+            checked += n_out
+            rows.append(f"{name}/{r}/{str(dt)[6:]}/{B}x{m}x{n}/L{L}")
+        del xs
+        torch.cuda.empty_cache()
+    xs = [torch.randn((1, 1024, 1024), generator=gen, device=dev)
+          for _ in range(GRAPH_INPUTS)]
+    user = graph_user_capture(xs, wt, 10)
+    traced = graph_trace(xs, wt, 10)
+    emit({"phase": "graphs", "signatures": rows, "outputs_checked": checked,
+          "calls_by_path": dict(counter), "user_capture": user,
+          "trace": traced})
 
 
 def phase_main(x):
@@ -3405,6 +3567,7 @@ def main():
     phase_kernelsmodwt(dev)
     phase_kernelshalo(dev)
     phase_kernelsstage(dev)
+    phase_graphs(dev)
     x = torch.from_numpy(np.random.default_rng(0).standard_normal(
         (SIZE, SIZE)).astype(np.float32)).to(dev)
     # each kernel's launches on its own main path

@@ -102,14 +102,15 @@ def test_import_builds_nothing():
 
 def test_build_key_follows_sources():
     assert [p.name for p in build.SOURCES] == [
-        "axis0.cu", "level1d.cu", "level2d.cu", "modwt1d.cu", "stage2d.cu",
-        "tail1d.cu", "tail2d.cu"]
+        "axis0.cu", "graph.cu", "level1d.cu", "level2d.cu", "modwt1d.cu",
+        "stage2d.cu", "tail1d.cu", "tail2d.cu"]
     assert set(build._SIGNATURES) >= {"wtt_axis0_fw", "wtt_axis0_inv",
                                       "wtt_axis0_fw_halo",
                                       "wtt_axis0_inv_halo",
                                       "wtt_modwt_fw", "wtt_modwt_inv",
                                       "wtt_modwt_fw_levels",
-                                      "wtt_stage2_fw"}
+                                      "wtt_stage2_fw", "wtt_graph_begin",
+                                      "wtt_graph_end", "wtt_graph_replay"}
     key = build._key()
     assert len(key) == 16 and key == build._key()
     assert "arch=compute_90a,code=sm_90a" in build.FLAGS

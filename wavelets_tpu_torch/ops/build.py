@@ -40,7 +40,7 @@ from .. import tracing
 
 __all__ = ["library", "build", "build_log", "check", "launch", "dtype_code",
            "DTYPE_CODES", "SOURCES", "Plan", "key", "planned", "store",
-           "last_byte", "PLANS", "PLAN_LIMIT"]
+           "mark", "used_since", "last_byte", "PLANS", "PLAN_LIMIT"]
 
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
@@ -127,6 +127,18 @@ _SIGNATURES = {
     # dtype, B, N, L, xw, xwsb, out, osr, taps, nt, plan[4], smem, stream
     "wtt_modwt_inv_levels": [_I, _I, _I, _I, _P, _L, _P, _L, _P, _I, _P, _L,
                              _P],
+    # the graphs of a driver's launch chain (csrc/graph.cu, ops/graph.py):
+    # stream; stream, *handle, *nodes; handle, node, out, cap; words, n,
+    # flags; handle, patches, npatches, bases, nbases; handle, bases,
+    # stream; handle; stream
+    "wtt_graph_begin": [_P],
+    "wtt_graph_end": [_P, ctypes.POINTER(_P), ctypes.POINTER(_I)],
+    "wtt_graph_block": [_P, _I, _P, _L],
+    "wtt_device_pointers": [_P, _I, _P],
+    "wtt_graph_instantiate": [_P, _P, _I, _P, _I],
+    "wtt_graph_replay": [_P, _P, _P],
+    "wtt_graph_free": [_P],
+    "wtt_graph_abort": [_P],
 }
 
 
@@ -293,6 +305,16 @@ def store(key, plan):
         if len(_plans) > PLAN_LIMIT:
             del _plans[min(_plans, key=lambda k: _plans[k].used)]
     return plan
+
+
+def mark():
+    """A stamp of the plans' clock, for :func:`used_since`."""
+    return next(_clock)
+
+
+def used_since(stamp):
+    """The kept plans looked up or stored after ``stamp``."""
+    return [p for p in _plans.values() if p.used > stamp]
 
 
 def last_byte(t):

@@ -34,6 +34,12 @@ Routes (``route=``), the counterparts of the JAX package's switches
 
 The image index rides the kernels' batch axis.  On the CPU every launch
 takes its kernel's plain version, through the same route.
+
+On the card a call's launches are one CUDA graph per call signature
+(ops/graph.py): the first call of a signature runs them through the
+launch wrappers, the second records them, and later calls write their
+buffers' addresses into the recorded launches and send them whole.
+``GRAPHS`` counts the CUDA calls by how they ran.
 """
 
 from __future__ import annotations
@@ -41,12 +47,12 @@ from __future__ import annotations
 import torch
 
 from .. import tracing
-from . import level2d, rowcol2d, stage2d, tail2d
+from . import graph, level2d, rowcol2d, stage2d, tail2d
 from .level2d import detail_planes
 from .scratch import Scratch
 
 __all__ = ["dwt2", "idwt2", "kernel_levels", "detail_planes", "stage_ok",
-           "ROUTES"]
+           "ROUTES", "GRAPHS"]
 
 ROUTES = ("level", "stage", "split")
 _KERNELS = (level2d.level_fw, level2d.level_inv, tail2d.tail_fw,
@@ -56,6 +62,12 @@ _PLAIN = (level2d.level_fw_plain, level2d.level_inv_plain,
           tail2d.tail_fw_plain, tail2d.tail_inv_plain,
           stage2d.stage2_fw_plain, rowcol2d.rowcol_fw_plain,
           rowcol2d.rowcol_inv_plain)
+# CUDA calls by how they ran (ops/graph.py, Store): captured a graph,
+# replayed one, ran the wrappers after a refused capture, or ran them
+# for any other reason (a signature's first call, plain=True, L == 0, a
+# stream under capture)
+GRAPHS = {"captures": 0, "replays": 0, "fallbacks": 0, "plain": 0}
+_graphs = graph.Store(GRAPHS, "pyramid2d.replay")
 
 
 def kernel_levels(m: int, n: int, L: int, wt, dtype, inverse: bool) -> int:
@@ -81,6 +93,47 @@ def _check_route(route, inverse):
         raise ValueError(f"unknown route {route!r}")
 
 
+def _run(name, x, wt, L, route, plain, chain, out, scratch):
+    """Make a call's launches: through the graph of its signature
+    (ops/graph.py) for a CUDA call, else ``chain()`` directly."""
+    if plain or x.device.type != "cuda":
+        chain()
+        GRAPHS["plain"] += x.device.type == "cuda"
+    else:
+        _graphs.run(graph.signature(name, wt, x, route, L), chain, x, out,
+                    scratch)
+
+
+def _fw_chain(x, wt, L, route, fns, y, scratch):
+    """The forward's launches on ``route`` (the module docstring)."""
+    level_fw, _, tail_fw, _, stage_fw, split_fw, _ = fns
+    B, m, n = x.shape
+    k = kernel_levels(m, n, L, wt, x.dtype, inverse=False)
+    if route == "split":
+        act = x
+        for l in range(1, k + 1):
+            ml, nl = m >> (l - 1), n >> (l - 1)
+            split_fw(act, wt, y[:, :ml, :nl], scratch.view(0, B, ml, nl))
+            act = y[:, : ml >> 1, : nl >> 1]
+    else:
+        act, first = x, 1
+        if route == "stage" and stage_ok(B, m, n, L, wt, x.dtype):
+            ll2 = (y[:, : m >> 2, : n >> 2] if L == 2
+                   else scratch.view(1, B, m >> 2, n >> 2))
+            stage_fw(x, wt, (ll2, *detail_planes(y, 1),
+                             *detail_planes(y, 2)))
+            act, first = ll2, 3
+        for l in range(first, k + 1):
+            mh, nh = m >> l, n >> l
+            ll = (y[:, :mh, :nh] if l == L
+                  else scratch.view((l - 1) % 2, B, mh, nh))
+            level_fw(act, wt, (ll, *detail_planes(y, l)))
+            act = ll
+    if k < L:
+        # in place on the split route: the tail reads its image first
+        tail_fw(act, wt, L - k, out=y[:, : m >> k, : n >> k])
+
+
 def dwt2(x, wt, L: int, *, route: str = "level", plain: bool = False):
     """L-level forward 2-D DWT of a contiguous ``x (B, m, n)`` -> packed
     ``(B, m, n)``, through ``route`` (see the module docstring).
@@ -88,40 +141,44 @@ def dwt2(x, wt, L: int, *, route: str = "level", plain: bool = False):
     reference for checking the kernels on the card)."""
     with tracing.span("pyramid2d.dwt2", L):
         _check_route(route, False)
-        level_fw, _, tail_fw, _, stage_fw, split_fw, _ = \
-            _PLAIN if plain else _KERNELS
         B, m, n = x.shape
         y = torch.empty_like(x)
         if L == 0:
+            GRAPHS["plain"] += x.device.type == "cuda"
             return y.copy_(x)
-        k = kernel_levels(m, n, L, wt, x.dtype, inverse=False)
-        if route == "split":
-            scratch = Scratch(x, (B * m * n, 0))
-            act = x
-            for l in range(1, k + 1):
-                ml, nl = m >> (l - 1), n >> (l - 1)
-                split_fw(act, wt, y[:, :ml, :nl], scratch.view(0, B, ml, nl))
-                act = y[:, : ml >> 1, : nl >> 1]
-        else:
-            scratch = Scratch(x, (B * (m >> 1) * (n >> 1),
-                                  B * (m >> 2) * (n >> 2)))
-            act, first = x, 1
-            if route == "stage" and stage_ok(B, m, n, L, wt, x.dtype):
-                ll2 = (y[:, : m >> 2, : n >> 2] if L == 2
-                       else scratch.view(1, B, m >> 2, n >> 2))
-                stage_fw(x, wt, (ll2, *detail_planes(y, 1),
-                                 *detail_planes(y, 2)))
-                act, first = ll2, 3
-            for l in range(first, k + 1):
-                mh, nh = m >> l, n >> l
-                ll = (y[:, :mh, :nh] if l == L
-                      else scratch.view((l - 1) % 2, B, mh, nh))
-                level_fw(act, wt, (ll, *detail_planes(y, l)))
-                act = ll
-        if k < L:
-            # in place on the split route: the tail reads its image first
-            tail_fw(act, wt, L - k, out=y[:, : m >> k, : n >> k])
+        scratch = Scratch(x, (B * m * n, 0) if route == "split" else
+                          (B * (m >> 1) * (n >> 1), B * (m >> 2) * (n >> 2)))
+        fns = _PLAIN if plain else _KERNELS
+        _run("dwt2", x, wt, L, route, plain,
+             lambda: _fw_chain(x, wt, L, route, fns, y, scratch), y, scratch)
         return y
+
+
+def _inv_chain(y, wt, L, route, fns, out, scratch):
+    """The inverse's launches on ``route`` (the module docstring)."""
+    _, level_inv, _, tail_inv, _, _, split_inv = fns
+    B, m, n = y.shape
+    k = kernel_levels(m, n, L, wt, y.dtype, inverse=True)
+    split = route == "split"
+
+    def dest(l):   # where level l's merged (m >> (l-1), n >> (l-1)) goes
+        if l == 1:
+            return out
+        return scratch.view(1 if split else l % 2, B, m >> (l - 1),
+                            n >> (l - 1))
+
+    if k < L:
+        act = tail_inv(y[:, : m >> k, : n >> k], wt, L - k, out=dest(k + 1))
+    else:
+        act = y[:, : m >> L, : n >> L]
+    for l in range(k, 0, -1):
+        if split:
+            ml, nl = m >> (l - 1), n >> (l - 1)
+            act = split_inv(y[:, :ml, :nl], wt, dest(l),
+                            corner=act if k < L or l < k else None,
+                            scratch=scratch.view(0, B, ml, nl))
+        else:
+            act = level_inv(act, *detail_planes(y, l), wt, out=dest(l))
 
 
 def idwt2(y, wt, L: int, *, route: str = "level", plain: bool = False):
@@ -129,36 +186,17 @@ def idwt2(y, wt, L: int, *, route: str = "level", plain: bool = False):
     through ``route`` ("level" or "split")."""
     with tracing.span("pyramid2d.idwt2", L):
         _check_route(route, True)
-        _, level_inv, _, tail_inv, _, _, split_inv = \
-            _PLAIN if plain else _KERNELS
         B, m, n = y.shape
         out = torch.empty_like(y, memory_format=torch.contiguous_format)
         if L == 0:
+            GRAPHS["plain"] += y.device.type == "cuda"
             return out.copy_(y)
-        k = kernel_levels(m, n, L, wt, y.dtype, inverse=True)
-        split = route == "split"
         # the split route's J writes buffer 0, its F and the tail buffer 1
-        scratch = Scratch(y, (B * m * n, B * (m >> 1) * (n >> 1)) if split
-                          else (B * (m >> 1) * (n >> 1),
-                                B * (m >> 2) * (n >> 2)))
-
-        def dest(l):   # where level l's merged (m >> (l-1), n >> (l-1)) goes
-            if l == 1:
-                return out
-            return scratch.view(1 if split else l % 2, B, m >> (l - 1),
-                                n >> (l - 1))
-
-        if k < L:
-            act = tail_inv(y[:, : m >> k, : n >> k], wt, L - k,
-                           out=dest(k + 1))
-        else:
-            act = y[:, : m >> L, : n >> L]
-        for l in range(k, 0, -1):
-            if split:
-                ml, nl = m >> (l - 1), n >> (l - 1)
-                act = split_inv(y[:, :ml, :nl], wt, dest(l),
-                                corner=act if k < L or l < k else None,
-                                scratch=scratch.view(0, B, ml, nl))
-            else:
-                act = level_inv(act, *detail_planes(y, l), wt, out=dest(l))
+        scratch = Scratch(y, (B * m * n, B * (m >> 1) * (n >> 1))
+                          if route == "split" else
+                          (B * (m >> 1) * (n >> 1), B * (m >> 2) * (n >> 2)))
+        fns = _PLAIN if plain else _KERNELS
+        _run("idwt2", y, wt, L, route, plain,
+             lambda: _inv_chain(y, wt, L, route, fns, out, scratch), out,
+             scratch)
         return out

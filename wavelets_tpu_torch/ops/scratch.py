@@ -26,11 +26,18 @@ class Scratch:
         self.like = like
         self.caps = caps
         self.bufs = [None, None]
+        self.order = []     # the buffers in the order they were allocated
+
+    def buffer(self, i):
+        """Buffer ``i``, allocated at its first use."""
+        buf = self.bufs[i]
+        if buf is None:
+            buf = self.bufs[i] = torch.empty(
+                self.caps[i], dtype=self.like.dtype, device=self.like.device)
+            ALLOCATED["bytes"] += buf.nbytes
+            self.order.append(i)
+        return buf
 
     def view(self, i, *shape):
         """The first ``prod(shape)`` samples of buffer ``i``, as ``shape``."""
-        if self.bufs[i] is None:
-            self.bufs[i] = torch.empty(self.caps[i], dtype=self.like.dtype,
-                                       device=self.like.device)
-            ALLOCATED["bytes"] += self.bufs[i].nbytes
-        return self.bufs[i][: math.prod(shape)].view(shape)
+        return self.buffer(i)[: math.prod(shape)].view(shape)

@@ -22,8 +22,12 @@ maps a stamp onto the Unix-epoch clock of the profiler's host events
 Counters are the ops modules' dicts, incremented whether tracing is on or
 not: ``LAUNCHES`` and ``PLAIN_CALLS`` of each launch wrapper's module,
 ``scratch.ALLOCATED`` (bytes the drivers' scratch buffers took),
-``parallel.sharded.STATS``, ``parallel.mesh.COPIES`` and ``build.PLANS``
-(the launch plans' hits and misses, :class:`ops.build.Plan`).
+``parallel.sharded.STATS``, ``parallel.mesh.COPIES``, ``build.PLANS``
+(the launch plans' hits and misses, :class:`ops.build.Plan`) and
+``pyramid2d.GRAPHS`` (the 2-D driver's CUDA calls by how they ran:
+graph captures, replays, refused captures, and calls through the
+wrappers; ops/graph.py).  A replay runs inside the driver's child span
+``pyramid2d.replay``.
 :func:`counters` reads them all at once.
 
 Spans are recorded for the thread that calls; the port's calls are made
@@ -55,6 +59,7 @@ COUNTERS = {
     "parallel.sharded": ("STATS",),
     "parallel.mesh": ("COPIES",),
     "ops.build": ("PLANS",),
+    "ops.pyramid2d": ("GRAPHS",),
 }
 
 
