@@ -380,6 +380,14 @@ def reset_counts():
                 d[k] = 0
 
 
+def launch_form(site, wt, *parts, stream, **form):
+    """One launch of a kernel in the form ``form`` asks for (``min_pairs``,
+    ``staged``, ``strips``, a tail's or MODWT's ``plan``): the plan built
+    by ``site.plan`` and not kept, called on ``parts``' tensors on the
+    raw ``stream``; no launch is counted."""
+    site.plan(wt, *parts, **form).call(site.order(*parts), stream)
+
+
 def launched(name, fn):
     """Run fn, synchronise, and require exactly one launch of ``name``."""
     before = counts()[0][name]
@@ -1098,7 +1106,8 @@ def check_fw1d(dev, rng, worst):
                     if tiled and B * h < level1d.FW1D_MIN_PAIRS:
                         s.fill_(nan)
                         d.fill_(nan)
-                        level1d._launch_fw(x, wt, s, d, stream, min_pairs=0)
+                        launch_form(level1d._FW, wt, x, s, d, stream=stream,
+                                    min_pairs=0)
                         torch.cuda.synchronize()
                         errs[f"level1d_fw_tiled_{path}byte"] = max(
                             rel_err(s, rs), rel_err(d, rd))
@@ -1143,7 +1152,8 @@ def check_tail_inv(dev, rng, worst):
                              lambda: tail1d.tail1d_inv(y, wt, L, out=got))
                     errs[f"tail1d_inv_{path}byte"] = rel_err(got, ref)
                     first = torch.full((B, n), nan, dtype=dt, device=dev)
-                    tail1d._launch_inv(y, wt, L, first, stream, staged=False)
+                    launch_form(tail1d._INV, wt, L, y, first, stream=stream,
+                                staged=False)
                     yy = y.clone()
                     tail1d.tail1d_inv(yy, wt, L, out=yy)
                     torch.cuda.synchronize()
@@ -1194,7 +1204,8 @@ def check_tail_fw(dev, rng, worst):
                              lambda: tail1d.tail1d_fw(x, wt, L, out=got))
                     errs[f"tail1d_fw_{path}byte"] = rel_err(got, ref)
                     first = torch.full((B, n), nan, dtype=dt, device=dev)
-                    tail1d._launch_fw(x, wt, L, first, stream, staged=False)
+                    launch_form(tail1d._FW, wt, L, x, first, stream=stream,
+                                staged=False)
                     xx = x.clone()
                     tail1d.tail1d_fw(xx, wt, L, out=xx)
                     torch.cuda.synchronize()
@@ -1278,7 +1289,9 @@ def check_fw_a0(dev, rng, worst):
         for bound in (0, 1 << 40):
             a.fill_(nan)
             d.fill_(nan)
-            axis0._launch_fw(x, wt, a, d, halos, stream, bound)
+            launch_form(axis0._FW if halos is None else axis0._FW_HALO, wt,
+                        x, a, d, *(halos or (None, None)), stream=stream,
+                        min_pairs=bound)
             torch.cuda.synchronize()
             got.append((a.clone(), d.clone()))
         (ta, td), (fa, fd) = got
@@ -1699,8 +1712,8 @@ def phase_kernelsstage(dev):
                         first = (yf[:, : m >> 2, : n >> 2],
                                  *level2d.detail_planes(yf, 1),
                                  *level2d.detail_planes(yf, 2))
-                        stage2d._launch(x, wt, first, stage2d.stage_tile(
-                            wt, dt), stream, strips=False)
+                        launch_form(stage2d._SITE, wt, x, first,
+                                    stream=stream, strips=False)
                         torch.cuda.synchronize()
                         first_equal[key] = first_equal.get(key, True) and \
                             torch.equal(yf, y)
@@ -2539,17 +2552,19 @@ def j_e_times(x, xs):
     # the halves of y
     yo = torch.empty_like(y)
     for tag, bound in (("", None), ("_first", first)):
-        timed(f"I_16384x16384_level1{tag}", lambda: axis0._launch_fw(
-            sc, cdf, yo[:, :h], yo[:, h:], None, stream, bound), y)
+        timed(f"I_16384x16384_level1{tag}", lambda: launch_form(
+            axis0._FW, cdf, sc, yo[:, :h], yo[:, h:], None, None,
+            stream=stream, min_pairs=bound), y)
     timed("I_16384x16384_db4", lambda: axis0.axis0_fw(
         sc, db4, yo[:, :h], yo[:, h:]), y)
     fa, fb = axis0.halo_reach(cdf, False)
     xh = sc[:, :rows_]
     ha = (xh[:, rows_ - fa:], xh[:, :fb])
     for tag, bound in (("", None), ("_first", first)):
-        timed(f"I_halo_4096x16384{tag}", lambda: axis0._launch_fw(
-            xh, cdf, yo[:, :rows_ // 2], yo[:, h:h + rows_ // 2], ha, stream,
-            bound), xh)
+        timed(f"I_halo_4096x16384{tag}", lambda: launch_form(
+            axis0._FW_HALO, cdf, xh, yo[:, :rows_ // 2],
+            yo[:, h:h + rows_ // 2], *ha, stream=stream, min_pairs=bound),
+            xh)
     del sc, yo
     s3 = torch.empty_like(x3)
     for dt in (torch.float32, torch.bfloat16):
@@ -2559,8 +2574,9 @@ def j_e_times(x, xs):
             if dt == torch.bfloat16 and bound:
                 continue
             dtag = "_bf16" if dt == torch.bfloat16 else ""
-            timed(f"I_256cubed_level1{tag}{dtag}", lambda: axis0._launch_fw(
-                dwt3d._rows(x3t), cdf, pa, pd, None, stream, bound), x3t)
+            timed(f"I_256cubed_level1{tag}{dtag}", lambda: launch_form(
+                axis0._FW, cdf, dwt3d._rows(x3t), pa, pd, None, None,
+                stream=stream, min_pairs=bound), x3t)
     del s3, x3t, s3t
     torch.cuda.empty_cache()
     return out
@@ -2594,8 +2610,9 @@ def i_form_times(dev):
                 xv = v[None] if shape == "square" else dwt3d._rows(v)
                 B, R, C = xv.shape
                 a, d = axis0.axis0_fw_plain(xv, wt)
-                us = [device_us(lambda: axis0._launch_fw(
-                    xv, wt, a, d, None, stream, bound))
+                us = [device_us(lambda: launch_form(
+                    axis0._FW, wt, xv, a, d, None, None, stream=stream,
+                    min_pairs=bound))
                     for bound in (0, 1 << 40, 0, 1 << 40)]
                 series.append([B * (R // 2) * C, min(us[0::2]),
                                min(us[1::2])])
@@ -2635,8 +2652,9 @@ def e_form_times(dev):
                 x = torch.from_numpy(rng.standard_normal((B, n)).astype(
                     np.float32)).to(dev)
                 s, d = level1d.level1d_fw_plain(x, wt)
-                us = [device_us(lambda: level1d._launch_fw(
-                    x, wt, s, d, stream, bound))
+                us = [device_us(lambda: launch_form(
+                    level1d._FW, wt, x, s, d, stream=stream,
+                    min_pairs=bound))
                     for bound in (0, 1 << 40, 0, 1 << 40)]
                 series.append([pairs, min(us[0::2]), min(us[1::2])])
             at = len(series)
@@ -2693,7 +2711,8 @@ def phase_forms(dev):
                 tiled_name if tiled and big else first, f"E {wname} {(B, n)}")
             if tiled and not big:
                 forms[f"E {wname} {(B, n)} bound 0"] = require_form(
-                    lambda: level1d._launch_fw(x, wt, s, d, stream, 0),
+                    lambda: launch_form(level1d._FW, wt, x, s, d,
+                                        stream=stream, min_pairs=0),
                     tiled_name, f"E {wname} {(B, n)} with a bound of 0")
     first, tiled_name = "axis0_fw_kernel", "axis0_fw_tiled_kernel"
     for (wname, kind) in FW1D_WAVELETS:
@@ -2709,7 +2728,8 @@ def phase_forms(dev):
                 tiled_name if tiled and big else first, tag)
             bound = 1 << 40 if big else 0
             forms[f"{tag} bound {bound}"] = require_form(
-                lambda: axis0._launch_fw(xi, wt, a, d, None, stream, bound),
+                lambda: launch_form(axis0._FW, wt, xi, a, d, None, None,
+                                    stream=stream, min_pairs=bound),
                 first if big or not tiled else tiled_name,
                 f"{tag} with a bound of {bound} pairs")
     for (wname, kind) in WAVELETS_HALO + (("db10", "filter"),):
@@ -2763,7 +2783,8 @@ def phase_forms(dev):
             "tail1d_inv_staged_kernel" if tail1d.inv_window(wt)
             else "tail1d_inv_kernel", f"H {wname}")
         forms[f"H {wname} staging off"] = require_form(
-            lambda: tail1d._launch_inv(yi, wt, 8, o, stream, staged=False),
+            lambda: launch_form(tail1d._INV, wt, 8, yi, o, stream=stream,
+                                staged=False),
             "tail1d_inv_kernel", f"H {wname} with staging off")
     for (wname, kind) in TAIL_FW_WAVELETS:
         wt = wavelet(wname, kind)
@@ -2774,7 +2795,8 @@ def phase_forms(dev):
             "tail1d_fw_staged_kernel" if tail1d.fw_window(wt)
             else "tail1d_fw_kernel", f"G {wname}")
         forms[f"G {wname} staging off"] = require_form(
-            lambda: tail1d._launch_fw(xi, wt, 8, o, stream, staged=False),
+            lambda: launch_form(tail1d._FW, wt, 8, xi, o, stream=stream,
+                                staged=False),
             "tail1d_fw_kernel", f"G {wname} with staging off")
     db4 = wavelet("db4", "filter")
     xw = modwt1d.modwt(randn(64, 4096), db4, 6)
@@ -2847,8 +2869,9 @@ def profiled_times(x, xs, rows):
         plan = modwt1d.cluster_plan(Pc, N, L, len(db4.qmf), xm.dtype)
         if plan is None:
             continue
-        fn = lambda: modwt1d._launch_levels(        # noqa: E731
-            xm, db4, L, Wp, torch.cuda.current_stream().cuda_stream, plan)
+        fn = lambda: launch_form(                   # noqa: E731
+            modwt1d._LEVELS, db4, L, xm, Wp,
+            stream=torch.cuda.current_stream().cuda_stream, plan=plan)
         fn()
         torch.cuda.synchronize()
         require(torch.equal(Wp, W), f"modwt_fw_levels with a cluster of {Pc}")
@@ -2910,10 +2933,9 @@ def n_h_times(x, xs, rows):
             *level2d.detail_planes(y, 1), *level2d.detail_planes(y, 2))
     ll1 = torch.empty((1, SIZE // 2, SIZE // 2), dtype=x.dtype,
                       device=x.device)
-    tile = stage2d.stage_tile(cdf, x.dtype)
     fns = {"strips": lambda: stage2d.stage2_fw(xb, cdf, outs),
-           "first_form": lambda: stage2d._launch(xb, cdf, outs, tile, stream,
-                                                 strips=False),
+           "first_form": lambda: launch_form(stage2d._SITE, cdf, xb, outs,
+                                             stream=stream, strips=False),
            "two_A": lambda: (level2d.level_fw(xb, cdf, (ll1, *outs[1:4])),
                              level2d.level_fw(ll1, cdf,
                                               (outs[0], *outs[4:])))}
@@ -2949,8 +2971,8 @@ def n_h_times(x, xs, rows):
     lrel = rel_err(interleave1d(lib[-1]()), ref)
     require(lrel <= LIBRARY_TOL, f"H's library chain: rel err {lrel:.3e}")
     fns = {"staged": lambda: tail1d.tail1d_inv(yb, db4, L, out=xr),
-           "first_form": lambda: tail1d._launch_inv(yb, db4, L, xf, stream,
-                                                    staged=False),
+           "first_form": lambda: launch_form(tail1d._INV, db4, L, yb, xf,
+                                             stream=stream, staged=False),
            "library_chain": chain}
     h = {k: {"device_us": device_us(f), "ms": P.med3(lambda _: f(), xb, 20)
              * 1e3} for k, f in fns.items()}
@@ -2974,8 +2996,8 @@ def n_h_times(x, xs, rows):
     lrel = rel_err(pack(lib()), ref)
     require(lrel <= LIBRARY_TOL, f"G's library chain: rel err {lrel:.3e}")
     fns = {"staged": lambda: tail1d.tail1d_fw(xb, db4, L, out=yg),
-           "first_form": lambda: tail1d._launch_fw(xb, db4, L, yf, stream,
-                                                   staged=False),
+           "first_form": lambda: launch_form(tail1d._FW, db4, L, xb, yf,
+                                             stream=stream, staged=False),
            "library_chain": lib}
     g = {k: {"device_us": device_us(f), "ms": P.med3(lambda _: f(), xb, 20)
              * 1e3} for k, f in fns.items()}
@@ -3003,13 +3025,13 @@ def n_h_times(x, xs, rows):
         yt = torch.from_numpy(rng.standard_normal((B, n_)).astype(
             np.float32)).to(x.device)
         ot = torch.empty_like(yt)
-        us = [device_us(lambda: tail1d._launch_inv(yt, wt, L, ot, stream,
-                                                   staged=st))
+        us = [device_us(lambda: launch_form(tail1d._INV, wt, L, yt, ot,
+                                            stream=stream, staged=st))
               for st in (True, False, True, False)]
         sweep.append({"rows": B, "n": n_, "wavelet": wt.name, "levels": L,
                       "staged_us": min(us[0::2]), "first_us": min(us[1::2])})
-        us = [device_us(lambda: tail1d._launch_fw(yt, wt, L, ot, stream,
-                                                  staged=st))
+        us = [device_us(lambda: launch_form(tail1d._FW, wt, L, yt, ot,
+                                            stream=stream, staged=st))
               for st in (True, False, True, False)]
         gsweep.append({"rows": B, "n": n_, "wavelet": wt.name, "levels": L,
                        "staged_us": min(us[0::2]), "first_us": min(us[1::2])})
@@ -3031,10 +3053,12 @@ def tail_cluster_times(dev, wt):
         for P in (8, 16):
             pf, pi = (tail2d.cluster_plan(P, 128, 128, L, wt, x.dtype, inv)
                       for inv in (False, True))
-            fw = lambda: tail2d._launch_fw(
-                x, wt, L, y, torch.cuda.current_stream().cuda_stream, pf)
-            inv = lambda: tail2d._launch_inv(
-                y, wt, L, z, torch.cuda.current_stream().cuda_stream, pi)
+            fw = lambda: launch_form(
+                tail2d._FW, wt, L, x, y,
+                stream=torch.cuda.current_stream().cuda_stream, plan=pf)
+            inv = lambda: launch_form(
+                tail2d._INV, wt, L, y, z,
+                stream=torch.cuda.current_stream().cuda_stream, plan=pi)
             row = {"fw_device_us": device_us(fw),
                    "inv_device_us": device_us(inv)}
             rel = max(rel_err(y, tail2d.tail_fw_plain(x, wt, L)),

@@ -181,14 +181,18 @@ class _Library:
 
 @pytest.fixture
 def lib(monkeypatch):
-    """The stand-in library, fresh plan cache and launch counter, and the
-    CUDA calls of the store answered for a CPU tensor."""
+    """The stand-in library, fresh plan cache and launch counter (level2d's
+    ``LAUNCHES``, registered in ``build.COUNTED``, which the store reads),
+    and the CUDA calls of the store answered for a CPU tensor."""
     stub = _Library()
     monkeypatch.setattr(build, "library", lambda: stub)
     monkeypatch.setattr(build, "_plans", {})
     monkeypatch.setattr(build, "_current_device", lambda: None)
     monkeypatch.setattr(build, "_raw_stream", lambda index: 77)
-    monkeypatch.setattr(level2d, "LAUNCHES", {"level_fw": 0, "level_inv": 0})
+    counts = {"level_fw": 0, "level_inv": 0}
+    monkeypatch.setattr(level2d, "LAUNCHES", counts)
+    for k in counts:
+        monkeypatch.setitem(build.COUNTED, k, counts)
     monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
                         lambda: stub.capturing)
     monkeypatch.setattr(torch.cuda, "device", lambda d: nullcontext())

@@ -7,7 +7,8 @@ found by the public wrapper for another set of the same signature, and the
 arguments it hands the library equal those of a plan built afresh from the
 second set.  A changed stride, shape, dtype or level misses; an output
 overlapping an input still raises on a hit; the cache is bounded; a plan
-holds no tensor of a call.
+holds no tensor of a call; a launch is counted once, in its module's
+``LAUNCHES`` as ``build`` registers it.
 """
 
 import ctypes
@@ -48,6 +49,12 @@ def lib(monkeypatch):
     monkeypatch.setattr(build, "_current_device", lambda: None)
     monkeypatch.setattr(build, "_raw_stream", lambda index: 77)
     return stub
+
+
+def _fresh(lib, plan, tensors):
+    """The arguments a fresh ``plan`` hands the library for ``tensors``."""
+    plan.call(tensors, 77)
+    return lib.calls.pop()[1]
 
 
 def _values(args):
@@ -172,65 +179,62 @@ def _modwt_m(shape, dtype):
             "out": _t((B, N), dtype), "j": 2}
 
 
-def _tile(wt, c):
-    return stage2d.stage_tile(wt, c["x"].dtype)
-
-
 SITES = {
     "level_fw": (
         _level_fw, lambda wt, c: level2d.level_fw(c["x"], wt, c["outs"]),
         lambda wt, c: ("level_fw", wt, c["x"], c["outs"]),
-        lambda wt, c: level2d._fw_plan(c["x"], wt, c["outs"]),
+        lambda wt, c: level2d._fw_plan(wt, c["x"], c["outs"]),
         lambda c: (c["x"], *c["outs"])),
     "level_inv": (
         _level_inv,
         lambda wt, c: level2d.level_inv(*c["quads"], wt, c["out"]),
         lambda wt, c: ("level_inv", wt, c["quads"], c["out"]),
-        lambda wt, c: level2d._inv_plan(c["quads"], wt, c["out"]),
+        lambda wt, c: level2d._inv_plan(wt, c["quads"], c["out"]),
         lambda c: (*c["quads"], c["out"])),
     "tail_fw": (
         _tail, lambda wt, c: tail2d.tail_fw(c["x"], wt, c["L"], c["out"]),
         lambda wt, c: ("tail_fw", wt, c["L"], c["x"], c["out"]),
-        lambda wt, c: tail2d._fw_plan(c["x"], wt, c["L"], c["out"]),
+        lambda wt, c: tail2d._fw_plan(wt, c["L"], c["x"], c["out"]),
         lambda c: (c["x"], c["out"])),
     "tail_inv": (
         _tail, lambda wt, c: tail2d.tail_inv(c["x"], wt, c["L"], c["out"]),
         lambda wt, c: ("tail_inv", wt, c["L"], c["x"], c["out"]),
-        lambda wt, c: tail2d._inv_plan(c["x"], wt, c["L"], c["out"]),
+        lambda wt, c: tail2d._inv_plan(wt, c["L"], c["x"], c["out"]),
         lambda c: (c["x"], c["out"])),
     "stage2_fw": (
         _stage, lambda wt, c: stage2d.stage2_fw(c["x"], wt, c["outs"]),
         lambda wt, c: ("stage2_fw", wt, c["x"], c["outs"]),
-        lambda wt, c: stage2d._plan(c["x"], wt, c["outs"], _tile(wt, c)),
+        lambda wt, c: stage2d._plan(wt, c["x"], c["outs"]),
         lambda c: (c["x"], *c["outs"])),
     "level1d_fw": (
         _level1d_fw,
         lambda wt, c: level1d.level1d_fw(c["x"], wt, c["s"], c["d"]),
         lambda wt, c: ("level1d_fw", wt, c["x"], c["s"], c["d"]),
-        lambda wt, c: level1d._fw_plan(c["x"], wt, c["s"], c["d"]),
+        lambda wt, c: level1d._fw_plan(wt, c["x"], c["s"], c["d"]),
         lambda c: (c["x"], c["s"], c["d"])),
     "level1d_inv": (
         _level1d_inv,
         lambda wt, c: level1d.level1d_inv(c["s"], c["d"], wt, c["out"]),
         lambda wt, c: ("level1d_inv", wt, c["s"], c["d"], c["out"]),
-        lambda wt, c: level1d._inv_plan(c["s"], c["d"], wt, c["out"]),
+        lambda wt, c: level1d._inv_plan(wt, c["s"], c["d"], c["out"]),
         lambda c: (c["s"], c["d"], c["out"])),
     "tail1d_fw": (
         _tail1d,
         lambda wt, c: tail1d.tail1d_fw(c["x"], wt, c["L"], c["out"]),
         lambda wt, c: ("tail1d_fw", wt, c["L"], c["x"], c["out"]),
-        lambda wt, c: tail1d._fw_plan(c["x"], wt, c["L"], c["out"]),
+        lambda wt, c: tail1d._fw_plan(wt, c["L"], c["x"], c["out"]),
         lambda c: (c["x"], c["out"])),
     "tail1d_inv": (
         _tail1d,
         lambda wt, c: tail1d.tail1d_inv(c["x"], wt, c["L"], c["out"]),
         lambda wt, c: ("tail1d_inv", wt, c["L"], c["x"], c["out"]),
-        lambda wt, c: tail1d._inv_plan(c["x"], wt, c["L"], c["out"]),
+        lambda wt, c: tail1d._inv_plan(wt, c["L"], c["x"], c["out"]),
         lambda c: (c["x"], c["out"])),
     "axis0_fw": (
         _axis0_fw, lambda wt, c: axis0.axis0_fw(c["x"], wt, c["a"], c["d"]),
         lambda wt, c: ("axis0_fw", wt, c["x"], c["a"], c["d"], None, None),
-        lambda wt, c: axis0._fw_plan(c["x"], wt, c["a"], c["d"], None),
+        lambda wt, c: axis0._fw_plan(wt, c["x"], c["a"], c["d"], None,
+                                     None),
         lambda c: (c["x"], c["a"], c["d"])),
     "axis0_fw_halo": (
         lambda s, dt: _axis0_fw(s, dt, halo=True),
@@ -238,15 +242,15 @@ SITES = {
                                      above=c["above"], below=c["below"]),
         lambda wt, c: ("axis0_fw_halo", wt, c["x"], c["a"], c["d"],
                        c["above"], c["below"]),
-        lambda wt, c: axis0._fw_plan(c["x"], wt, c["a"], c["d"],
-                                     (c["above"], c["below"])),
+        lambda wt, c: axis0._fw_plan(wt, c["x"], c["a"], c["d"],
+                                     c["above"], c["below"]),
         lambda c: (c["x"], c["a"], c["d"], c["above"], c["below"])),
     "axis0_inv": (
         _axis0_inv,
         lambda wt, c: axis0.axis0_inv(c["a"], c["d"], wt, c["out"]),
         lambda wt, c: ("axis0_inv", wt, c["a"], c["d"], c["out"], None,
                        None),
-        lambda wt, c: axis0._inv_plan(c["a"], c["d"], wt, c["out"], None,
+        lambda wt, c: axis0._inv_plan(wt, c["a"], c["d"], c["out"], None,
                                       None),
         lambda c: (c["a"], c["d"], c["out"])),
     "axis0_inv.corner": (
@@ -255,7 +259,7 @@ SITES = {
                                       c["corner"]),
         lambda wt, c: ("axis0_inv", wt, c["a"], c["d"], c["out"],
                        c["corner"], None),
-        lambda wt, c: axis0._inv_plan(c["a"], c["d"], wt, c["out"],
+        lambda wt, c: axis0._inv_plan(wt, c["a"], c["d"], c["out"],
                                       c["corner"], None),
         lambda c: (c["a"], c["d"], c["corner"], c["out"])),
     "axis0_inv_halo": (
@@ -264,26 +268,26 @@ SITES = {
                                       halos=c["halos"]),
         lambda wt, c: ("axis0_inv_halo", wt, c["a"], c["d"], c["out"], None,
                        c["halos"]),
-        lambda wt, c: axis0._inv_plan(c["a"], c["d"], wt, c["out"], None,
+        lambda wt, c: axis0._inv_plan(wt, c["a"], c["d"], c["out"], None,
                                       c["halos"]),
         lambda c: (c["a"], c["d"], *c["halos"], c["out"])),
     "modwt_fw_levels": (
         _modwt_levels,
         lambda wt, c: modwt1d.modwt_fw_levels(c["x"], wt, c["L"], c["out"]),
         lambda wt, c: ("modwt_fw_levels", wt, c["L"], c["x"], c["out"]),
-        lambda wt, c: modwt1d._levels_plan(c["x"], wt, c["L"], c["out"]),
+        lambda wt, c: modwt1d._levels_plan(wt, c["L"], c["x"], c["out"]),
         lambda c: (c["x"], c["out"])),
     "modwt_inv_levels": (
         _modwt_inv_levels,
         lambda wt, c: modwt1d.modwt_inv_levels(c["xw"], wt, c["out"]),
         lambda wt, c: ("modwt_inv_levels", wt, c["xw"], c["out"]),
-        lambda wt, c: modwt1d._inv_levels_plan(c["xw"], wt, c["out"]),
+        lambda wt, c: modwt1d._inv_levels_plan(wt, c["xw"], c["out"]),
         lambda c: (c["xw"], c["out"])),
     "modwt_fw": (
         _modwt_k,
         lambda wt, c: modwt1d.modwt_fw(c["v"], wt, c["j"], c["v1"], c["w1"]),
         lambda wt, c: ("modwt_fw", wt, c["j"], c["v"], c["v1"], c["w1"]),
-        lambda wt, c: modwt1d._fw_plan(c["v"], wt, c["j"], c["v1"],
+        lambda wt, c: modwt1d._fw_plan(wt, c["j"], c["v"], c["v1"],
                                        c["w1"]),
         lambda c: (c["v"], c["v1"], c["w1"])),
     "modwt_inv": (
@@ -291,7 +295,7 @@ SITES = {
         lambda wt, c: modwt1d.modwt_inv(c["v1"], c["w1"], wt, c["j"],
                                         c["out"]),
         lambda wt, c: ("modwt_inv", wt, c["j"], c["v1"], c["w1"], c["out"]),
-        lambda wt, c: modwt1d._inv_plan(c["v1"], c["w1"], wt, c["j"],
+        lambda wt, c: modwt1d._inv_plan(wt, c["j"], c["v1"], c["w1"],
                                         c["out"]),
         lambda c: (c["v1"], c["w1"], c["out"])),
 }
@@ -308,12 +312,58 @@ def _stored(site, wt, c):
     return build.store(build.key(*key(wt, c)), plan(wt, c))
 
 
+MODULES = (axis0, level1d, level2d, modwt1d, stage2d, tail1d, tail2d)
+
+
 def test_every_launch_key_has_a_site():
     keys = set()
-    for mod in (axis0, level1d, level2d, modwt1d, stage2d, tail1d, tail2d):
+    for mod in MODULES:
         keys |= set(mod.LAUNCHES)
     assert keys == {s.split(".")[0] for s in SITES}
     assert len(keys) == 17 and len(SITES) == 18
+
+
+@pytest.mark.parametrize("mod", MODULES, ids=lambda m: m.__name__)
+def test_a_modules_launch_keys_are_counted_in_build(mod):
+    """Each key of the module's ``LAUNCHES`` is registered in
+    ``build.COUNTED`` to that very dict, and the registered keys are the
+    library's launch entry points."""
+    assert mod.LAUNCHES and set(mod.LAUNCHES) == set(mod.PLAIN_CALLS)
+    for k in mod.LAUNCHES:
+        assert build.COUNTED[k] is mod.LAUNCHES
+    entries = {e[4:] for e in build._SIGNATURES if not
+               e.startswith("wtt_graph_") and e != "wtt_device_pointers"}
+    assert set(build.COUNTED) == entries
+
+
+@pytest.mark.parametrize("site", sorted(SITES))
+def test_a_launch_is_counted_once_where_it_happens(site, lib, monkeypatch):
+    """A CPU call raises its key's ``PLAIN_CALLS`` alone; with the plain
+    versions switched off, a miss (which builds and keeps the plan) and a
+    hit each launch once and raise its ``LAUNCHES`` by one; ``Plan.call``
+    alone launches and counts nothing."""
+    make, call, _, plan, tensors = SITES[site]
+    name, wt = site.split(".")[0], _wavelet(site, "db4")
+    mod = next(m for m in MODULES if name in m.LAUNCHES)
+    launches, plain = dict(build.COUNTED), dict(mod.PLAIN_CALLS)
+    counts = {k: d[k] for k, d in build.COUNTED.items()}
+
+    def rise():
+        return {k: d[k] - counts[k] for k, d in build.COUNTED.items()
+                if d[k] != counts[k]}
+    call(wt, make(SHAPES[0], torch.float32))
+    assert rise() == {} and not lib.calls
+    assert {k: n - plain[k] for k, n in mod.PLAIN_CALLS.items()
+            if n != plain[k]} == {name: 1}
+    monkeypatch.setattr(build, "_PLAIN_DEVICE", None)
+    for n in (1, 2):
+        call(wt, make(SHAPES[0], torch.float32))
+        assert rise() == {name: n} and len(lib.calls) == n
+    assert build.PLANS == {"hits": 1, "misses": 1}
+    c = make(SHAPES[0], torch.float32)
+    plan(wt, c).call(tensors(c), 77)
+    assert rise() == {name: 2} and len(lib.calls) == 3
+    assert build.COUNTED == launches
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
@@ -331,7 +381,7 @@ def test_a_hit_hands_the_library_a_fresh_plans_arguments(site, name, dtype,
         call(wt, second)
         assert build.PLANS["hits"] == hits + 1
         [(entry, got)] = lib.calls
-        want = plan(wt, second).fill(tensors(second), 77)
+        want = _fresh(lib, plan(wt, second), tensors(second))
         assert entry == "wtt_" + site.split(".")[0]
         assert _values(got) == _values(want)
         flat = []
@@ -454,11 +504,10 @@ def test_an_oversized_wavelet_raises_before_a_plan_is_kept(lib):
     c = _level_fw(SHAPES[0], torch.float64)
     key = build.key("level_fw", long, c["x"], c["outs"])
     with pytest.raises(ValueError, match="reach too far"):
-        build.store(key, level2d._fw_plan(c["x"], long, c["outs"]))
+        build.store(key, level2d._fw_plan(long, c["x"], c["outs"]))
     with pytest.raises(ValueError, match="reach too far"):
         build.store(key, level2d._inv_plan(
-            _level_inv(SHAPES[0], torch.float64)["quads"], long,
-            c["x"]))
+            long, _level_inv(SHAPES[0], torch.float64)["quads"], c["x"]))
     assert build.planned(key) is None
     assert build.PLANS == {"hits": 0, "misses": 0} and not build._plans
 
@@ -468,7 +517,7 @@ def test_plans_count_one_miss_then_hits(lib):
     wt = WAVELETS["cdf97"]
     key = build.key("level_fw", wt, c["x"], c["outs"])
     assert build.planned(key) is None
-    build.store(key, level2d._fw_plan(c["x"], wt, c["outs"]))
+    build.store(key, level2d._fw_plan(wt, c["x"], c["outs"]))
     for k in range(1, 6):
         level2d.level_fw(c["x"], wt, c["outs"])
         assert build.PLANS == {"hits": k, "misses": 1}
@@ -480,7 +529,7 @@ def test_the_cache_keeps_at_most_its_bound_least_recent_out(lib):
     wt = WAVELETS["haar"]
     keys = [("k", n) for n in range(build.PLAN_LIMIT + 10)]
     for n, key in enumerate(keys):
-        build.store(key, tail2d._fw_plan(c["x"], wt, 3, c["out"]))
+        build.store(key, tail2d._fw_plan(wt, 3, c["x"], c["out"]))
         if n == build.PLAN_LIMIT - 1:
             assert build.planned(keys[0])     # the first, used again
     assert len(build._plans) == build.PLAN_LIMIT <= 1024
@@ -549,6 +598,6 @@ def test_a_hit_allocates_the_outputs_it_was_not_given(site, lib):
     build.store(build.key(*key(wt, c)), plan(wt, first))
     second = dict(c, **put(call(wt, c)))
     [(_, got)] = lib.calls
-    want = plan(wt, second).fill(tensors(second), 77)
+    want = _fresh(lib, plan(wt, second), tensors(second))
     assert _values(got) == _values(want)
     assert build.PLANS["hits"] == 1

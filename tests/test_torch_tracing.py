@@ -17,7 +17,7 @@ import torch
 
 import wavelets_tpu_torch as T
 from wavelets_tpu_torch import tracing
-from wavelets_tpu_torch.ops import build, pyramid2d, scratch
+from wavelets_tpu_torch.ops import build, level2d, pyramid2d, scratch
 
 # (family, shape, levels, wavelet, driver spans, launch keys)
 CASES = {
@@ -251,16 +251,25 @@ class _Library:
 @pytest.mark.parametrize("status", [0, 7])
 def test_launch_calls_the_entry_point_inside_its_call_span(status,
                                                            monkeypatch):
+    """``Plan.call`` (what a launch wrapper's plan runs) calls its entry
+    point inside the span ``<key>.call`` and raises on its status; it
+    counts no launch."""
     lib = _Library(status)
     monkeypatch.setattr(build, "library", lambda: lib)
+    x = torch.randn(1, 8, 8)
+    outs = tuple(torch.empty(1, 4, 4) for _ in range(4))
+    plan = level2d._fw_plan(_carrier("cdf97"), x, outs)
+    launches = dict(level2d.LAUNCHES)
     tracing.enable()
     with tracing.span("level_fw"):
         if status:
             with pytest.raises(RuntimeError, match="level_fw: CUDA error 7"):
-                build.launch("level_fw", 1, 2)
+                plan.call((x, *outs), 77)
         else:
-            build.launch("level_fw", 1, 2)
+            plan.call((x, *outs), 77)
     spans = tracing.take()["spans"]
-    assert lib.calls == [("wtt_level_fw", (1, 2))]
+    [(entry, args)] = lib.calls
+    assert entry == "wtt_level_fw" and args[4].value == x.data_ptr()
+    assert args[-1].value == 77 and level2d.LAUNCHES == launches
     assert [(s.name, s.parent) for s in spans] == [("level_fw", -1),
                                                    ("level_fw.call", 0)]

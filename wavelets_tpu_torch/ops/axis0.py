@@ -48,12 +48,10 @@ from typing import NamedTuple
 
 import torch
 
-from .. import tracing
 from . import build
 from .bands import acc_dtype, band_reach, band_table, level_bands, \
     syn_reach, synthesis_bands
-from .level2d import _analysis, _check_disjoint, _check_input, _check_plane, \
-    _synthesis
+from .level2d import _analysis, _check_input, _check_plane, _synthesis
 
 __all__ = ["LAUNCHES", "PLAIN_CALLS", "axis0_fw", "axis0_fw_plain",
            "axis0_inv", "axis0_inv_plain", "halo_reach", "fw_window",
@@ -61,8 +59,8 @@ __all__ = ["LAUNCHES", "PLAIN_CALLS", "axis0_fw", "axis0_fw_plain",
            "FW_A0_MIN_PAIRS"]
 
 # the halo mode counts apart from the periodic one
-LAUNCHES = {"axis0_fw": 0, "axis0_inv": 0, "axis0_fw_halo": 0,
-            "axis0_inv_halo": 0}
+LAUNCHES = build.counter("axis0_fw", "axis0_inv", "axis0_fw_halo",
+                         "axis0_inv_halo")
 PLAIN_CALLS = {"axis0_fw": 0, "axis0_inv": 0, "axis0_fw_halo": 0,
                "axis0_inv_halo": 0}
 
@@ -405,7 +403,7 @@ def _halo_args(halos):
             halos[0].shape[1])
 
 
-def _fw_plan(x, wt, a, d, halos, min_pairs=None):
+def _fw_plan(wt, x, a, d, above, below, min_pairs=None):
     """Kernel I's launch plan for this call's signature; a level of fewer
     than ``min_pairs`` output pairs (default ``FW_A0_MIN_PAIRS``) takes
     the first form, so 0 forces the tiled form where the span allows it,
@@ -414,55 +412,81 @@ def _fw_plan(x, wt, a, d, halos, min_pairs=None):
         min_pairs = FW_A0_MIN_PAIRS
     table = band_table(wt, False, x.dtype, x.device)
     B, R, C = x.shape
-    head = (build.dtype_code(x.dtype), B, R, C, x, x.stride(0), x.stride(1),
-            a, a.stride(0), a.stride(1), d, d.stride(0), d.stride(1))
-    tail = (table.offs.data_ptr(), table.coefs.data_ptr(), *table.counts,
-            table.dmin, table.span, min_pairs)
-    if halos is None:
-        return build.Plan("axis0_fw", (*head, *tail), (x, a, d), reads=(0,),
-                          keep=table)
-    return build.Plan("axis0_fw_halo", (*head, *_halo_args(halos), *tail),
-                      (x, a, d, *halos), reads=(0, 3, 4), keep=table,
-                      what="axis0_fw")
+    halos = () if above is None else _halo_args((above, below))
+    return build.Plan(_FW_HALO if halos else _FW, (
+        build.dtype_code(x.dtype), B, R, C, x, x.stride(0), x.stride(1), a,
+        a.stride(0), a.stride(1), d, d.stride(0), d.stride(1), *halos,
+        table.offs.data_ptr(), table.coefs.data_ptr(), *table.counts,
+        table.dmin, table.span, min_pairs), keep=table)
 
 
-def _inv_plan(a, d, wt, out, corner, halos):
+def _inv_plan(wt, a, d, out, corner, halos):
     """Kernel J's launch plan for this call's signature: with a corner
     view (or None), or with halos."""
     table = band_table(wt, True, a.dtype, a.device)
     B, Rh, C = a.shape
-    head = (build.dtype_code(a.dtype), B, Rh, C, a, a.stride(0), a.stride(1),
-            d, d.stride(0), d.stride(1))
-    tail = (out, out.stride(0), out.stride(1), table.offs.data_ptr(),
-            table.coefs.data_ptr(), (ctypes.c_int * 4)(*table.counts),
-            table.dmin, table.span)
     if halos is not None:
-        return build.Plan("axis0_inv_halo",
-                          (*head, *_halo_args(halos), *tail),
-                          (a, d, *halos, out), reads=(0, 1, 2, 3, 4, 5),
-                          keep=table, what="axis0_inv")
-    if corner is None:
-        return build.Plan("axis0_inv", (*head, None, 0, 0, 0, 0, *tail),
-                          (a, d, out), reads=(0, 1), keep=table)
-    return build.Plan("axis0_inv", (
-        *head, corner, corner.stride(0), corner.stride(1), corner.shape[0],
-        corner.shape[2], *tail), (a, d, corner, out), reads=(0, 1, 2),
+        site, middle = _INV_HALO, _halo_args(halos)
+    elif corner is None:
+        site, middle = _INV, (None, 0, 0, 0, 0)
+    else:
+        site, middle = _INV, (corner, corner.stride(0), corner.stride(1),
+                              corner.shape[0], corner.shape[2])
+    return build.Plan(site, (
+        build.dtype_code(a.dtype), B, Rh, C, a, a.stride(0), a.stride(1), d,
+        d.stride(0), d.stride(1), *middle, out, out.stride(0), out.stride(1),
+        table.offs.data_ptr(), table.coefs.data_ptr(),
+        (ctypes.c_int * 4)(*table.counts), table.dmin, table.span),
         keep=table)
 
 
-def _launch_fw(x, wt, a, d, halos, stream, min_pairs=None):
-    """Launch kernel I (:func:`_fw_plan`)."""
-    _fw_plan(x, wt, a, d, halos, min_pairs).call(
-        (x, a, d, *(halos or ())), stream)
+def _fw_check(wt, x, a, d, above, below):
+    _check_input(x)
+    a, d = _fw_outs(x, a, d)
+    _check_halos((above, below), x, halo_reach(wt, False), False)
+    return x, a, d, above, below
 
 
-def _launch_inv_halo(a, d, wt, halos, out, stream):
-    _inv_plan(a, d, wt, out, None, halos).call((a, d, *halos, out), stream)
+def _fw_plain(wt, x, a, d, above, below):
+    return axis0_fw_plain(x, wt, a, d, above=above, below=below)
 
 
-def _launch_inv(a, d, wt, out, corner, stream):
-    _inv_plan(a, d, wt, out, corner, None).call(
-        (a, d, out) if corner is None else (a, d, corner, out), stream)
+def _fw_alloc(wt, x, a, d, above, below):
+    return (x, *_fw_outs(x, None, None), above, below)
+
+
+def _inv_check(wt, a, d, out, corner, halos):
+    out = _inv_args(a, d, out, corner)
+    return a, d, out, corner, _inv_halos(a, wt, corner, halos)
+
+
+def _inv_plain(wt, a, d, out, corner, halos):
+    return axis0_inv_plain(a, d, wt, out, corner, halos=halos)
+
+
+def _inv_alloc(wt, a, d, out, corner, halos):
+    return a, d, _inv_args(a, d, None, corner), corner, halos
+
+
+def _inv_tensors(a, d, out, corner, halos):
+    return (a, d, out) if corner is None else (a, d, corner, out)
+
+
+_FW = build.Site(
+    "axis0_fw", _fw_check, lambda x, a, d, above, below: (x, a, d),
+    _fw_plain, _fw_plan, result=slice(1, 3), writes=slice(1, 3),
+    outs=_fw_alloc)
+_FW_HALO = build.Site(
+    "axis0_fw_halo", _fw_check,
+    lambda x, a, d, above, below: (x, a, d, above, below), _fw_plain,
+    _fw_plan, result=slice(1, 3), writes=slice(1, 3), outs=_fw_alloc)
+_INV = build.Site(
+    "axis0_inv", _inv_check, _inv_tensors, _inv_plain, _inv_plan, result=2,
+    writes=slice(-1, None), outs=_inv_alloc)
+_INV_HALO = build.Site(
+    "axis0_inv_halo", _inv_check,
+    lambda a, d, out, corner, halos: (a, d, *halos, out), _inv_plain,
+    _inv_plan, result=2, writes=slice(-1, None), outs=_inv_alloc)
 
 
 def axis0_fw(x, wt, a=None, d=None, *, above=None, below=None):
@@ -472,27 +496,8 @@ def axis0_fw(x, wt, a=None, d=None, *, above=None, below=None):
     (``(B, H, C)`` views covering :func:`halo_reach`) the level reads the
     rows beyond ``x`` from them instead of wrapping.  The outputs may not
     overlap the inputs.  Returns ``(a, d)``."""
-    plain = above is None and below is None
-    name = "axis0_fw" if plain else "axis0_fw_halo"
-    with tracing.span(name):
-        key = build.key(name, wt, x, a, d, above, below)
-        plan = build.planned(key)
-        if plan is None:
-            _check_input(x)
-            a, d = _fw_outs(x, a, d)
-            halos = _check_halos((above, below), x, halo_reach(wt, False),
-                                 False)
-            _check_disjoint((x,) + (halos or ()), (a, d), "axis0_fw")
-            if x.device.type == "cpu":
-                return axis0_fw_plain(x, wt, a, d, above=above, below=below)
-            if not x.numel():
-                return a, d
-            plan = build.store(key, _fw_plan(x, wt, a, d, halos))
-        elif a is None:
-            a, d = _fw_outs(x, None, None)
-        plan.launch((x, a, d) if plain else (x, a, d, above, below))
-        LAUNCHES[name] += 1
-        return a, d
+    site = _FW if above is None and below is None else _FW_HALO
+    return build.run(site, wt, (x, a, d, above, below))
 
 
 def axis0_inv(a, d, wt, out=None, corner=None, *, halos=None):
@@ -504,24 +509,5 @@ def axis0_inv(a, d, wt, out=None, corner=None, *, halos=None):
     beyond the planes come from them instead of wrapping.  Every view has
     unit column stride; ``out`` may not overlap the inputs.  Returns
     ``out``."""
-    name = "axis0_inv" if halos is None else "axis0_inv_halo"
-    with tracing.span(name):
-        key = build.key(name, wt, a, d, out, corner, halos)
-        plan = build.planned(key)
-        if plan is None:
-            out = _inv_args(a, d, out, corner)
-            halos = _inv_halos(a, wt, corner, halos)
-            reads = (a, d) + ((corner,) if corner is not None else ()) + \
-                (halos or ())
-            _check_disjoint(reads, (out,), "axis0_inv")
-            if a.device.type == "cpu":
-                return axis0_inv_plain(a, d, wt, out, corner, halos=halos)
-            if not a.numel():
-                return out
-            plan = build.store(key, _inv_plan(a, d, wt, out, corner, halos))
-        elif out is None:
-            out = _inv_args(a, d, None, corner)
-        plan.launch((a, d, *halos, out) if halos is not None else
-                    (a, d, out) if corner is None else (a, d, corner, out))
-        LAUNCHES[name] += 1
-        return out
+    site = _INV if halos is None else _INV_HALO
+    return build.run(site, wt, (a, d, out, corner, halos))

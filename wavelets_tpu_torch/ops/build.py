@@ -11,14 +11,18 @@ this module builds nothing and needs no ``nvcc``.
 Every C entry point returns the launch's ``cudaError_t``; :func:`check`
 raises on anything but 0.
 
-A :class:`Plan` is one launch's C arguments for a call signature: the
-launch wrappers of ``ops/`` build it at the first call of a signature,
-after their checks, and keep it under :func:`key` (:func:`planned`,
-:func:`store`; at most ``PLAN_LIMIT``, the least recently used dropped
-first); a later call of that signature writes its tensors' data pointers
-and the stream into the plan's slots, checks the overlap of its outputs
-and inputs from their byte extents, and calls.  ``PLANS`` counts the hits
-and misses.  Plans are used from one thread, as the port's calls are.
+Every launch wrapper of ``ops/`` makes its call through :func:`run`, the
+one launch protocol: a :class:`Site` holds what differs between wrappers
+(checks, plain version, plan, tensor order).  A :class:`Plan` is
+one launch's C arguments for a call signature: :func:`run` builds it at
+the first call of a signature, after the wrapper's checks, and keeps it
+under :func:`key` (:func:`planned`, :func:`store`; at most
+``PLAN_LIMIT``, the least recently used dropped first); a later call of
+that signature writes its tensors' data pointers and the stream into the
+plan's slots, checks the overlap of its outputs and inputs from their
+byte extents, calls, and counts the launch in its module's ``LAUNCHES``
+(:func:`counter`).  ``PLANS`` counts the hits and misses.  Plans are used
+from one thread, as the port's calls are.
 """
 
 from __future__ import annotations
@@ -38,9 +42,10 @@ import torch
 
 from .. import tracing
 
-__all__ = ["library", "build", "build_log", "check", "launch", "dtype_code",
-           "DTYPE_CODES", "SOURCES", "Plan", "key", "planned", "store",
-           "mark", "used_since", "last_byte", "PLANS", "PLAN_LIMIT"]
+__all__ = ["library", "build", "build_log", "check", "dtype_code",
+           "DTYPE_CODES", "SOURCES", "Site", "run", "Plan", "counter", "key",
+           "planned", "store", "mark", "used_since", "extent", "COUNTED",
+           "PLANS", "PLAN_LIMIT"]
 
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
@@ -226,23 +231,13 @@ def check(status: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {status} ({msg})")
 
 
-# launch key -> (C entry point, span name)
-_ENTRIES = {name[4:]: (name, name[4:] + ".call") for name in _SIGNATURES}
-
-
-def launch(key: str, *args) -> None:
-    """Call the C entry point ``wtt_<key>`` with ``args`` and raise on its
-    status (:func:`check`), inside the span ``<key>.call``."""
-    entry, name = _ENTRIES[key]
-    with tracing.span(name):
-        check(getattr(library(), entry)(*args), key)
-
-
 # --- launch plans ------------------------------------------------------------
 
 _Tensor = torch.Tensor
 PLAN_LIMIT = 512          # plans kept; the least recently used goes first
 PLANS = {"hits": 0, "misses": 0}
+COUNTED: dict = {}       # launch key -> the LAUNCHES dict that counts it
+_PLAIN_DEVICE = "cpu"    # the device type that takes the plain versions
 _plans: dict = {}
 _clock = itertools.count()       # a plan's last use, for the eviction
 _wavelets: dict = {}             # id(wavelet) -> (the wavelet, its token)
@@ -250,20 +245,28 @@ _tokens: dict = {}               # wavelet -> token; equal wavelets share one
 _next_token = itertools.count()
 
 
-def _token(wt):
-    """A small int standing for the wavelet ``wt`` in a key, whose hash
-    costs nothing (a carrier hashes all its coefficients).  ``_wavelets``
-    holds each wavelet it has seen, so no other object can take its id
-    while it is there; at ``PLAN_LIMIT`` wavelets both maps are emptied,
-    and a wavelet seen again takes a new token."""
-    seen = _wavelets.get(id(wt))
-    if seen is None:
-        if len(_wavelets) >= PLAN_LIMIT:
-            _wavelets.clear()
-            _tokens.clear()
-        seen = _wavelets[id(wt)] = (
-            wt, _tokens.setdefault(wt, next(_next_token)))
-    return seen[1]
+def counter(*keys):
+    """A launch wrapper module's ``LAUNCHES``: a count for each launch key,
+    zero, registered in :data:`COUNTED` under each key, so that
+    :meth:`Plan.launch` raises it."""
+    counts = dict.fromkeys(keys, 0)
+    COUNTED.update(dict.fromkeys(keys, counts))
+    return counts
+
+
+def _remember(wt):
+    """``(wt, token)``: the token is a small int standing for the wavelet
+    ``wt`` in a key, whose hash costs nothing (a carrier hashes all its
+    coefficients).  ``_wavelets`` holds each wavelet it has seen, so no
+    other object can take its id while it is there; at ``PLAN_LIMIT``
+    wavelets both maps are emptied, and a wavelet seen again takes a new
+    token."""
+    if len(_wavelets) >= PLAN_LIMIT:
+        _wavelets.clear()
+        _tokens.clear()
+    token = _tokens.setdefault(wt, next(_next_token))
+    _wavelets[id(wt)] = (wt, token)
+    return wt, token
 
 
 def key(name, wt, *parts):
@@ -272,8 +275,12 @@ def key(name, wt, *parts):
     shape, strides, dtype and device, and each list or tuple by the tuple
     of its items' (None kept).  None where a part is no such thing, so
     that the call misses and the wrapper's own checks judge it."""
+    return _plan_key(name, wt, parts)
+
+
+def _plan_key(name, wt, parts):
     try:
-        return (name, _token(wt), *[
+        return (name, (_wavelets.get(id(wt)) or _remember(wt))[1], *[
             (p.shape, p.stride(), p.dtype, p.device)
             if isinstance(p, _Tensor) else
             tuple([None if t is None else (t.shape, t.stride(), t.dtype,
@@ -317,100 +324,171 @@ def used_since(stamp):
     return [p for p in _plans.values() if p.used > stamp]
 
 
-def last_byte(t):
-    """The offset of the last byte a strided view spans from its data
-    pointer, or None for an empty view."""
-    if not t.numel():
-        return None
+def extent(t):
+    """``(base, size)``: a strided view's data pointer and the bytes it
+    spans from there; (0, 0) for None or an empty view."""
+    if t is None or not t.numel():
+        return 0, 0
     last = sum((n - 1) * s for n, s in zip(t.shape, t.stride()))
-    return (last + 1) * t.element_size() - 1
+    return t.data_ptr(), (last + 1) * t.element_size()
+
+
+def _pairs(tensors, writes):
+    """``(input, output, bytes of each)`` for each non-empty input and
+    output among ``tensors``, by index (:func:`extent`); ``writes``
+    slices the outputs out of them (None: no pair)."""
+    if writes is None:
+        return ()
+    index = range(len(tensors))
+    outs, size = index[writes], [extent(t)[1] for t in tensors]
+    return tuple((r, w, size[r], size[w]) for r in index if r not in outs
+                 for w in outs if size[r] and size[w])
+
+
+def _overlap(ptrs, pairs, what):
+    """The overlap rule: a kernel reads its inputs while it writes its
+    outputs, so raise where the bytes of an output (from its data pointer
+    in ``ptrs``, :func:`_pairs`) meet an input's."""
+    for r, w, sr, sw in pairs:
+        if ptrs[r] < ptrs[w] + sw and ptrs[w] < ptrs[r] + sr:
+            raise ValueError(f"{what}: an output overlaps an input")
+
+
+class Site:
+    """What one launch wrapper brings to :func:`run` for the launch key
+    ``key`` (its span, its ``LAUNCHES`` key, the entry point
+    ``wtt_<key>``; errors name it without ``_halo``).  The hooks take the
+    wavelet and the call's ``parts``, the plan key's parts in its order:
+    ``check`` runs the wrapper's checks and hands back the parts with the
+    outputs allocated, ``outs`` (default ``check``) allocates on a hit
+    the outputs the caller did not give (where ``parts[result]``, or its
+    first, is None), ``fits`` raises for a call the kernel cannot take
+    on any device, ``plain`` runs the plain version and ``plan`` builds the
+    :class:`Plan`.  ``order(*parts)`` is the launch's tensors in the entry
+    point's order, the input that picks the device first; ``writes``
+    slices its outputs out of them (None: the launch may write its input,
+    as the tails do).  The wrapper hands back ``parts[result]``."""
+
+    __slots__ = ("key", "what", "check", "order", "plain", "plan", "result",
+                 "given", "writes", "outs", "fits")
+
+    def __init__(self, key, check, order, plain, plan, result, writes=None,
+                 outs=None, fits=None):
+        self.key, self.what = key, key.removesuffix("_halo")
+        self.check, self.order, self.plain = check, order, plain
+        self.plan, self.result, self.writes = plan, result, writes
+        self.outs, self.fits = outs or check, fits
+        self.given = result if isinstance(result, int) else result.start
+
+
+def run(site, wt, parts, tag=-1):
+    """A launch wrapper's call, inside the span ``site.key`` (``tag``):
+    look up the plan of its signature (:func:`key` of ``parts``).  On a
+    miss run the checks, refuse an output that overlaps an input, hand a
+    CPU tensor to the plain version and an empty call back unlaunched,
+    then build and keep the plan; on a hit allocate the outputs the caller
+    did not give.  Launch, counting it (:meth:`Plan.launch`), and hand
+    back ``parts[site.result]``."""
+    with tracing.span(site.key, tag):
+        k = _plan_key(site.key, wt, parts)
+        plan = planned(k)
+        if plan is None:
+            parts = site.check(wt, *parts)
+            tensors = site.order(*parts)
+            _overlap([t.data_ptr() for t in tensors],
+                     _pairs(tensors, site.writes), site.what)
+            if site.fits is not None:
+                site.fits(wt, *parts)
+            if tensors[0].device.type == _PLAIN_DEVICE:
+                return site.plain(wt, *parts)
+            if not tensors[0].numel():
+                return parts[site.result]
+            plan = store(k, site.plan(wt, *parts))
+        else:
+            if parts[site.given] is None:
+                parts = site.outs(wt, *parts)
+            tensors = site.order(*parts)
+        plan.launch(tensors)
+        return parts[site.result]
 
 
 class Plan:
-    """The C arguments of one launch of ``wtt_<key>``, for a signature.
+    """The C arguments of one launch of ``wtt_<site.key>``, for a
+    signature.
 
-    ``args`` are the entry point's arguments but the stream, as a launch
-    wrapper computes them at the first call: each tensor of ``tensors``
-    (a pointer argument, in the order of ``tensors``) and each list or
-    tuple of them (a pointer array) becomes a slot that :meth:`fill`
-    overwrites with the call's data pointers; None is a null pointer; a
-    ctypes value is kept; any other value is converted once to its ctypes
-    type.  ``keep`` holds what the constant pointers point into (a band
-    table), so a plan never depends on a tensor of a call.  ``reads``
-    are the indices into ``tensors`` of the inputs that no other tensor
-    may overlap (none: no check); ``what`` names the launch in its
-    errors."""
+    ``args`` are the entry point's arguments but the stream, as the
+    site's ``plan`` computes them from a call: each tensor and each list
+    or tuple of tensors (a pointer array) becomes a slot that
+    :meth:`call` overwrites with a call's data pointers, the call's
+    tensors taken in the order the slots have in ``args``
+    (``site.order``); None is a null pointer; a ctypes value is kept; any
+    other value is converted once to its ctypes type.  ``keep`` holds what
+    the constant pointers point into (a band table), so a plan never
+    depends on a tensor of a call."""
 
     __slots__ = ("key", "call_span", "fn", "args", "stream", "scalars",
-                 "cells", "pairs", "device", "what", "keep", "used")
+                 "cells", "pairs", "device", "what", "counts", "keep", "used")
 
-    def __init__(self, key, args, tensors, reads=(), keep=None, what=None):
-        entry, self.call_span = _ENTRIES[key]
-        self.key, self.what, self.keep = key, what or key, keep
+    def __init__(self, site, args, keep=None):
+        entry = "wtt_" + site.key
+        self.key, self.what, self.keep = site.key, site.what, keep
+        self.call_span, self.counts = site.key + ".call", COUNTED[site.key]
         self.fn = getattr(library(), entry)
-        scalars, cells, out, k = [], [], [], 0
+        tensors, scalars, cells, out = [], [], [], []
         for argtype, a in zip(_SIGNATURES[entry], args):
             if isinstance(a, torch.Tensor):
-                assert a is tensors[k], f"{key}: argument out of order"
-                a = ctypes.c_void_p()
-                scalars.append((a, k))
-                k += 1
+                scalars.append((ctypes.c_void_p(), len(tensors)))
+                tensors.append(a)
+                a = scalars[-1][0]
             elif isinstance(a, (tuple, list)):
                 array = (ctypes.c_void_p * len(a))()
                 for i, t in enumerate(a):
-                    assert t is tensors[k], f"{key}: argument out of order"
-                    cells.append((array, i, k))
-                    k += 1
+                    cells.append((array, i, len(tensors)))
+                    tensors.append(t)
                 a = array
             elif a is None:
                 a = ctypes.c_void_p()
             elif not isinstance(a, (ctypes.Array, ctypes._SimpleCData)):
                 a = argtype(a)
             out.append(a)
-        if k != len(tensors) or len(out) + 1 != len(_SIGNATURES[entry]):
-            raise TypeError(f"{key}: {len(out)} arguments and {k} tensors "
-                            "do not fit the entry point")
+        if len(out) + 1 != len(_SIGNATURES[entry]):
+            raise TypeError(f"{site.key}: {len(out)} arguments do not fit "
+                            "the entry point")
         self.stream = ctypes.c_void_p()
         self.args = (*out, self.stream)
         self.scalars, self.cells = tuple(scalars), tuple(cells)
-        last = [last_byte(t) for t in tensors]
-        self.pairs = tuple((r, w, last[r], last[w]) for r in reads
-                           for w in range(len(tensors))
-                           if w not in reads and last[r] is not None
-                           and last[w] is not None)
+        self.pairs = _pairs(tensors, site.writes)
         self.device = tensors[0].device.index
 
-    def fill(self, tensors, stream):
-        """The arguments for ``tensors`` (the signature's) and the raw
-        ``stream``; raises ValueError where an output overlaps an
-        input."""
+    def call(self, tensors, stream):
+        """Launch on ``tensors`` (the signature's, in the slots' order) and
+        the raw ``stream`` (the current device's), inside the span
+        ``<key>.call``: write their data pointers and the stream into the
+        arguments, raise ValueError where an output overlaps an input, and
+        raise on the launch's status.  Counts nothing."""
         ptrs = [t.data_ptr() for t in tensors]
-        for r, w, lr, lw in self.pairs:
-            a, b = ptrs[r], ptrs[w]
-            if a <= b + lw and b <= a + lr:
-                raise ValueError(f"{self.what}: an output overlaps an input")
+        if self.pairs:
+            _overlap(ptrs, self.pairs, self.what)
         for slot, k in self.scalars:
             slot.value = ptrs[k]
         for array, i, k in self.cells:
             array[i] = ptrs[k]
         self.stream.value = stream
-        return self.args
-
-    def call(self, tensors, stream):
-        """Launch on ``tensors`` and the raw ``stream`` (the current
-        device's), inside the span ``<key>.call``; raise on its status."""
-        args = self.fill(tensors, stream)
         with tracing.span(self.call_span):
-            check(self.fn(*args), self.key)
+            status = self.fn(*self.args)
+            if status:
+                check(status, self.key)
 
     def launch(self, tensors):
         """:meth:`call` on the current stream of the plan's device, made
-        the current device only where it is not."""
+        the current device only where it is not, counted in ``LAUNCHES``."""
         device = self.device
         if _current_device() == device:
-            return self.call(tensors, _raw_stream(device))
-        with torch.cuda.device(device):
             self.call(tensors, _raw_stream(device))
+        else:
+            with torch.cuda.device(device):
+                self.call(tensors, _raw_stream(device))
+        self.counts[self.key] += 1
 
 
 # The current device's index, and the raw handle of a device's current

@@ -25,7 +25,8 @@ a CUDA graph and later sends it whole:
    ``cudaGraphExecKernelNodeSetParams`` and launches the graph on the
    current stream.  That update applies to later launches only, not to
    those in flight, which is what lets jobs overlap.  It raises each
-   kernel's ``LAUNCHES`` counter by what the graph ran.
+   kernel's ``LAUNCHES`` counter (``build.COUNTED``) by what the graph
+   ran.
 
 A call on a stream under capture (a caller's own ``torch.cuda.graph``)
 runs the wrappers, so the caller's capture records them as before.  At
@@ -38,7 +39,6 @@ thread, as the port's calls are.
 from __future__ import annotations
 
 import ctypes
-import importlib
 import itertools
 
 import torch
@@ -107,13 +107,6 @@ def rebase(blocks, patches, bases):
     return out
 
 
-def _extent(t):
-    """``(base, size)`` of the bytes a tensor spans; (0, 0) for none."""
-    if t is None or not t.numel():
-        return 0, 0
-    return t.data_ptr(), build.last_byte(t) + 1
-
-
 def _tensors(obj):
     """The tensors in ``obj``: a tensor, or tuples and lists of them (a
     plan's ``keep``)."""
@@ -122,13 +115,6 @@ def _tensors(obj):
     elif isinstance(obj, (tuple, list)):
         for o in obj:
             yield from _tensors(o)
-
-
-def _launch_counters():
-    """Every ``LAUNCHES`` dict of the ops modules."""
-    return [getattr(importlib.import_module(f"{__package__.rsplit('.', 1)[0]}"
-                                            f".{m}"), "LAUNCHES")
-            for m, names in tracing.COUNTERS.items() if "LAUNCHES" in names]
 
 
 class _Entry:
@@ -255,8 +241,7 @@ class Store:
         stream = self.streams.get(device)
         if stream is None:
             stream = self.streams[device] = torch.cuda.Stream(device)
-        dicts = _launch_counters()
-        before = [dict(d) for d in dicts]
+        before = {k: d[k] for k, d in build.COUNTED.items()}
         mark = build.mark()
         status = lib.wtt_graph_begin(stream.cuda_stream)
         if status != 0:
@@ -266,21 +251,20 @@ class Store:
                 chain()
         except RuntimeError as e:   # a CUDA call the capture does not take
             lib.wtt_graph_abort(stream.cuda_stream)
-            _restore(dicts, before)
+            _restore(before)
             raise Refused(str(e)) from e
         handle, nodes = ctypes.c_void_p(), ctypes.c_int()
         status = lib.wtt_graph_end(stream.cuda_stream, ctypes.byref(handle),
                                    ctypes.byref(nodes))
-        counts = tuple((d, k, d[k] - b.get(k, 0))
-                       for d, b in zip(dicts, before) for k in d
-                       if d[k] != b.get(k, 0))
-        _restore(dicts, before)
+        counts = tuple((d, k, d[k] - before[k])
+                       for k, d in build.COUNTED.items() if d[k] != before[k])
+        _restore(before)
         if status != 0:
             raise Refused(f"graph_end: status {status}")
         try:
             keep = tuple(p.keep for p in build.used_since(mark))
-            held = [_extent(t) for t in _tensors(keep)]
-            ranges = [_extent(t) for t in bufs]
+            held = [build.extent(t) for t in _tensors(keep)]
+            ranges = [build.extent(t) for t in bufs]
             block = ctypes.create_string_buffer(_BLOCK)
             blocks = []
             for i in range(nodes.value):
@@ -302,9 +286,9 @@ class Store:
         return handle, counts, keep
 
 
-def _restore(dicts, before):
-    for d, b in zip(dicts, before):
-        d.update(b)
+def _restore(before):
+    for k, n in before.items():
+        build.COUNTED[k][k] = n
 
 
 def _device_words(words):

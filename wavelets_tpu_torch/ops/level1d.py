@@ -36,17 +36,16 @@ from typing import NamedTuple
 
 import torch
 
-from .. import tracing
 from . import build
 from .bands import acc_dtype, band_table, level_bands, synthesis_bands
-from .level2d import DTYPES, _analysis, _check_disjoint, _synthesis
+from .level2d import DTYPES, _analysis, _synthesis
 
 __all__ = ["DTYPES", "LAUNCHES", "PLAIN_CALLS", "level1d_fw",
            "level1d_fw_plain", "level1d_inv", "level1d_inv_plain",
            "inv1d_window", "inv1d_smem", "fw1d_window", "fw1d_smem",
            "fw1d_plan", "FW1D_MIN_PAIRS"]
 
-LAUNCHES = {"level1d_fw": 0, "level1d_inv": 0}
+LAUNCHES = build.counter("level1d_fw", "level1d_inv")
 PLAIN_CALLS = {"level1d_fw": 0, "level1d_inv": 0}
 
 # kernel F (csrc/level1d.cu): the tiled form's window bounds; its pair
@@ -248,76 +247,53 @@ def fw1d_plan(x, wt, min_pairs=FW1D_MIN_PAIRS) -> Fw1dPlan:
                     lsh, -(-B // rpb) * tiles, fw1d_smem(wt, x.dtype))
 
 
-def _fw_plan(x, wt, s, d, min_pairs=FW1D_MIN_PAIRS):
+def _fw_plan(wt, x, s, d, min_pairs=FW1D_MIN_PAIRS):
     """Kernel E's launch plan for this call's signature."""
     table = band_table(wt, False, x.dtype, x.device)
     B, n = x.shape
-    return build.Plan("level1d_fw", (
+    return build.Plan(_FW, (
         build.dtype_code(x.dtype), B, n, x, x.stride(0), s, s.stride(0), d,
         d.stride(0), table.offs.data_ptr(), table.coefs.data_ptr(),
-        *table.counts, table.dmin, table.span, min_pairs), (x, s, d),
-        reads=(0,), keep=table)
+        *table.counts, table.dmin, table.span, min_pairs), keep=table)
 
 
-def _inv_plan(s, d, wt, out):
+def _inv_plan(wt, s, d, out):
     """Kernel F's launch plan for this call's signature."""
     table = band_table(wt, True, s.dtype, s.device)
     B, nh = s.shape
-    return build.Plan("level1d_inv", (
+    return build.Plan(_INV, (
         build.dtype_code(s.dtype), B, nh, s, s.stride(0), d, d.stride(0),
         out, out.stride(0), table.offs.data_ptr(), table.coefs.data_ptr(),
         (ctypes.c_int * 4)(*table.counts), table.dmin, table.span),
-        (s, d, out), reads=(0, 1), keep=table)
+        keep=table)
 
 
-def _launch_fw(x, wt, s, d, stream, min_pairs=FW1D_MIN_PAIRS):
-    _fw_plan(x, wt, s, d, min_pairs).call((x, s, d), stream)
+def _fw_check(wt, x, s, d):
+    check_rows(x, "x")
+    return (x, *_fw_outs(x, s, d))
 
 
-def _launch_inv(s, d, wt, out, stream):
-    _inv_plan(s, d, wt, out).call((s, d, out), stream)
+_FW = build.Site(
+    "level1d_fw", _fw_check, lambda x, s, d: (x, s, d),
+    lambda wt, x, s, d: level1d_fw_plain(x, wt, s, d), _fw_plan,
+    result=slice(1, 3), writes=slice(1, None),
+    outs=lambda wt, x, s, d: (x, *_fw_outs(x, None, None)))
+_INV = build.Site(
+    "level1d_inv", lambda wt, s, d, out: (s, d, _inv_out(s, d, out)),
+    lambda s, d, out: (s, d, out),
+    lambda wt, s, d, out: level1d_inv_plain(s, d, wt, out), _inv_plan,
+    result=2, writes=slice(-1, None))
 
 
 def level1d_fw(x, wt, s=None, d=None):
     """Forward 1-D level of ``x (B, n)`` into the planes ``s`` and ``d``
     (``(B, n/2)``, unit column stride, any row stride; allocated when both
     are None).  The outputs may not overlap ``x``.  Returns ``(s, d)``."""
-    with tracing.span("level1d_fw"):
-        key = build.key("level1d_fw", wt, x, s, d)
-        plan = build.planned(key)
-        if plan is None:
-            check_rows(x, "x")
-            s, d = _fw_outs(x, s, d)
-            _check_disjoint((x,), (s, d), "level1d_fw")
-            if x.device.type == "cpu":
-                return level1d_fw_plain(x, wt, s, d)
-            if not x.shape[0]:
-                return s, d
-            plan = build.store(key, _fw_plan(x, wt, s, d))
-        elif s is None:
-            s, d = _fw_outs(x, None, None)
-        plan.launch((x, s, d))
-        LAUNCHES["level1d_fw"] += 1
-        return s, d
+    return build.run(_FW, wt, (x, s, d))
 
 
 def level1d_inv(s, d, wt, out=None):
     """Inverse 1-D level: the planes ``s`` and ``d`` ``(B, nh)`` (unit
     column stride, any row stride) -> ``out (B, 2nh)`` (allocated when
     None), which may not overlap them.  Returns ``out``."""
-    with tracing.span("level1d_inv"):
-        key = build.key("level1d_inv", wt, s, d, out)
-        plan = build.planned(key)
-        if plan is None:
-            out = _inv_out(s, d, out)
-            _check_disjoint((s, d), (out,), "level1d_inv")
-            if s.device.type == "cpu":
-                return level1d_inv_plain(s, d, wt, out)
-            if not s.shape[0]:
-                return out
-            plan = build.store(key, _inv_plan(s, d, wt, out))
-        elif out is None:
-            out = _inv_out(s, d, None)
-        plan.launch((s, d, out))
-        LAUNCHES["level1d_inv"] += 1
-        return out
+    return build.run(_INV, wt, (s, d, out))

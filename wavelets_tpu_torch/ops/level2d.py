@@ -28,7 +28,6 @@ import ctypes
 
 import torch
 
-from .. import tracing
 from . import build
 from .bands import acc_dtype, band_table, level_bands, synthesis_bands
 
@@ -38,7 +37,7 @@ __all__ = ["DTYPES", "LAUNCHES", "PLAIN_CALLS", "level_fw", "level_fw_plain",
 
 DTYPES = (torch.float32, torch.float64, torch.bfloat16)
 # kernel launches and plain-version calls, per entry point
-LAUNCHES = {"level_fw": 0, "level_inv": 0}
+LAUNCHES = build.counter("level_fw", "level_inv")
 PLAIN_CALLS = {"level_fw": 0, "level_inv": 0}
 
 # tile of csrc/level2d.cu: TR x TC quads per block
@@ -71,25 +70,6 @@ def _check_input(x, name="x"):
         raise ValueError(f"{name}: unsupported device {x.device}")
     if x.stride(-1) != 1:
         raise ValueError(f"{name} needs unit column stride")
-
-
-def _extent(t):
-    """[first, last] byte address that a non-empty strided view spans."""
-    first = t.data_ptr()
-    return first, first + build.last_byte(t)
-
-
-def _check_disjoint(reads, writes, name):
-    """A kernel reads its inputs while it writes its outputs: refuse an
-    output whose memory may overlap an input's."""
-    for r in reads:
-        storage = r.untyped_storage().data_ptr()
-        for w in writes:
-            if (w.untyped_storage().data_ptr() == storage and r.numel()
-                    and w.numel()):
-                (r0, r1), (w0, w1) = _extent(r), _extent(w)
-                if r0 <= w1 and w0 <= r1:
-                    raise ValueError(f"{name}: an output overlaps an input")
 
 
 def detail_planes(y, l):
@@ -312,21 +292,20 @@ def fw_smem(wt, dtype) -> int:
     return 2 * rows * _TC * acc + 2 * (rows * ps + _FW_PAD) * size + table
 
 
-def _fw_plan(x, wt, outs):
+def _fw_plan(wt, x, outs):
     """Kernel A's launch plan for this call's signature."""
     table = band_table(wt, False, x.dtype, x.device)
     if fw_smem(wt, x.dtype) > SMEM_LIMIT:
         raise ValueError(f"level_fw: the bands of {wt.name} reach too far "
                          "for the kernel's shared-memory tile")
     B, m, n = x.shape
-    return build.Plan("level_fw", (
+    return build.Plan(_FW, (
         build.dtype_code(x.dtype), B, m, n, x, x.stride(0), x.stride(1),
         *_planes_args(outs), table.offs.data_ptr(), table.coefs.data_ptr(),
-        *table.counts, table.dmin, table.span), (x, *outs), reads=(0,),
-        keep=table)
+        *table.counts, table.dmin, table.span), keep=table)
 
 
-def _inv_plan(quads, wt, out):
+def _inv_plan(wt, quads, out):
     """Kernel B's launch plan for this call's signature."""
     ll = quads[0]
     table = band_table(wt, True, ll.dtype, ll.device)
@@ -334,63 +313,38 @@ def _inv_plan(quads, wt, out):
         raise ValueError(f"level_inv: the bands of {wt.name} reach too far "
                          "for the kernel's shared-memory tile")
     B, mh, nh = ll.shape
-    return build.Plan("level_inv", (
+    return build.Plan(_INV, (
         build.dtype_code(ll.dtype), B, mh, nh, *_planes_args(quads), out,
         out.stride(0), out.stride(1), table.offs.data_ptr(),
         table.coefs.data_ptr(), (ctypes.c_int * 4)(*table.counts),
-        table.dmin, table.span), (*quads, out), reads=(0, 1, 2, 3),
-        keep=table)
+        table.dmin, table.span), keep=table)
 
 
-def _launch_fw(x, wt, outs, stream):
-    _fw_plan(x, wt, outs).call((x, *outs), stream)
+def _fw_check(wt, x, outs):
+    _check_input(x)
+    return x, _fw_outs(x, outs)
 
 
-def _launch_inv(quads, wt, out, stream):
-    _inv_plan(quads, wt, out).call((*quads, out), stream)
+_FW = build.Site(
+    "level_fw", _fw_check, lambda x, outs: (x, *outs),
+    lambda wt, x, outs: level_fw_plain(x, wt, outs), _fw_plan, result=1,
+    writes=slice(1, None), outs=lambda wt, x, outs: (x, _fw_outs(x, None)))
+_INV = build.Site(
+    "level_inv", lambda wt, quads, out: (quads, _inv_args(quads, out)),
+    lambda quads, out: (*quads, out),
+    lambda wt, quads, out: level_inv_plain(*quads, wt, out), _inv_plan,
+    result=1, writes=slice(-1, None))
 
 
 def level_fw(x, wt, outs=None):
     """Forward 2-D level of ``x (B, m, n)`` into ``outs`` = (LL, LH, HL, HH)
     planes of ``(B, m/2, n/2)`` with unit column stride (allocated when
     None).  The outputs may not overlap ``x``.  Returns the four planes."""
-    with tracing.span("level_fw"):
-        key = build.key("level_fw", wt, x, outs)
-        plan = build.planned(key)
-        if plan is None:
-            _check_input(x)
-            outs = _fw_outs(x, outs)
-            _check_disjoint((x,), outs, "level_fw")
-            if x.device.type == "cpu":
-                return level_fw_plain(x, wt, outs)
-            if not x.shape[0]:
-                return outs
-            plan = build.store(key, _fw_plan(x, wt, outs))
-        else:                       # the miss hands back a tuple too
-            outs = _fw_outs(x, None) if outs is None else tuple(outs)
-        plan.launch((x, *outs))
-        LAUNCHES["level_fw"] += 1
-        return outs
+    return build.run(_FW, wt, (x, outs if outs is None else tuple(outs)))
 
 
 def level_inv(ll, lh, hl, hh, wt, out=None):
     """Inverse 2-D level: the (LL, LH, HL, HH) planes ``(B, mh, nh)`` with
     unit column stride -> ``out (B, 2mh, 2nh)`` (allocated when None),
     which may not overlap the planes.  Returns ``out``."""
-    with tracing.span("level_inv"):
-        quads = (ll, lh, hl, hh)
-        key = build.key("level_inv", wt, quads, out)
-        plan = build.planned(key)
-        if plan is None:
-            out = _inv_args(quads, out)
-            _check_disjoint(quads, (out,), "level_inv")
-            if ll.device.type == "cpu":
-                return level_inv_plain(ll, lh, hl, hh, wt, out)
-            if not ll.shape[0]:
-                return out
-            plan = build.store(key, _inv_plan(quads, wt, out))
-        elif out is None:
-            out = _inv_args(quads, None)
-        plan.launch((*quads, out))
-        LAUNCHES["level_inv"] += 1
-        return out
+    return build.run(_INV, wt, ((ll, lh, hl, hh), out))

@@ -38,7 +38,7 @@ import torch
 from .. import tracing
 from . import build
 from .bands import acc_dtype
-from .level2d import DTYPES, SMEM_LIMIT, _check_disjoint
+from .level2d import DTYPES, SMEM_LIMIT
 from .modwt import check_levels, imodwt_step, modwt_filter_pair, modwt_step
 from .scratch import Scratch
 
@@ -48,8 +48,8 @@ __all__ = ["LAUNCHES", "PLAIN_CALLS", "ModwtPlan", "modwt_plan",
            "modwt_inv_levels_plain", "modwt_fw", "modwt_fw_plain",
            "modwt_inv", "modwt_inv_plain", "modwt", "imodwt"]
 
-LAUNCHES = {"modwt_fw_levels": 0, "modwt_inv_levels": 0, "modwt_fw": 0,
-            "modwt_inv": 0}
+LAUNCHES = build.counter("modwt_fw_levels", "modwt_inv_levels", "modwt_fw",
+                         "modwt_inv")
 PLAIN_CALLS = {"modwt_fw_levels": 0, "modwt_inv_levels": 0, "modwt_fw": 0,
                "modwt_inv": 0}
 
@@ -313,24 +313,24 @@ def _rows_args(t):
     return t, t.stride(0), t.stride(1)
 
 
-def _fw_plan(v, wt, j, v1, w1):
+def _fw_plan(wt, j, v, v1, w1):
     """Kernel K's launch plan for this call's signature."""
     taps = _taps(wt, v.dtype, v.device)
     B, N = v.shape
-    return build.Plan("modwt_fw", (
+    return build.Plan(_FW, (
         build.dtype_code(v.dtype), B, N, 2 ** (j - 1) % N, *_rows_args(v),
         *_rows_args(v1), *_rows_args(w1), taps.data_ptr(), taps.numel() // 2),
-        (v, v1, w1), reads=(0,), keep=taps)
+        keep=taps)
 
 
-def _inv_plan(v1, w1, wt, j, out):
+def _inv_plan(wt, j, v1, w1, out):
     """Kernel M's launch plan for this call's signature."""
     taps = _taps(wt, v1.dtype, v1.device)
     B, N = v1.shape
-    return build.Plan("modwt_inv", (
+    return build.Plan(_INV, (
         build.dtype_code(v1.dtype), B, N, 2 ** (j - 1) % N, *_rows_args(v1),
         *_rows_args(w1), *_rows_args(out), taps.data_ptr(),
-        taps.numel() // 2), (v1, w1, out), reads=(0, 1), keep=taps)
+        taps.numel() // 2), keep=taps)
 
 
 @lru_cache(maxsize=None)
@@ -340,34 +340,63 @@ def _plan_args(plan):
                                plan.taps), plan.smem)
 
 
-def _levels_plan(x, wt, L, out, plan=None):
+def _levels_plan(wt, L, x, out, plan=None):
     """The all-levels forward's launch plan for this call's signature."""
     taps = _taps(wt, x.dtype, x.device)
     B, N = x.shape
     plan = plan or _plan_of(x, wt, L)
-    return build.Plan("modwt_fw_levels", (
+    return build.Plan(_LEVELS, (
         build.dtype_code(x.dtype), B, N, L, *_rows_args(x), out,
         out.stride(0), taps.data_ptr(), taps.numel() // 2, *_plan_args(plan)),
-        (x, out), reads=(0,), keep=taps)
+        keep=taps)
 
 
-def _inv_levels_plan(xw, wt, out, plan=None):
+def _inv_levels_plan(wt, xw, out, plan=None):
     """The all-levels inverse's launch plan for this call's signature."""
     taps = _taps(wt, xw.dtype, xw.device)
     B, N, L1 = xw.shape
     plan = plan or _inv_plan_of(xw, wt)
-    return build.Plan("modwt_inv_levels", (
+    return build.Plan(_INV_LEVELS, (
         build.dtype_code(xw.dtype), B, N, L1 - 1, xw, xw.stride(0), out,
         out.stride(0), taps.data_ptr(), taps.numel() // 2, *_plan_args(plan)),
-        (xw, out), reads=(0,), keep=taps)
+        keep=taps)
 
 
-def _launch_levels(x, wt, L, out, stream, plan=None):
-    _levels_plan(x, wt, L, out, plan).call((x, out), stream)
+def _levels_fits(wt, L, x, out):
+    if not _plan_of(x, wt, L).fits:
+        raise ValueError(f"modwt_fw_levels: rows of {x.shape[1]} {x.dtype} "
+                         f"through {L} levels fit no cluster (modwt_plan)")
 
 
-def _launch_inv_levels(xw, wt, out, stream, plan=None):
-    _inv_levels_plan(xw, wt, out, plan).call((xw, out), stream)
+def _inv_levels_fits(wt, xw, out):
+    if not _inv_plan_of(xw, wt).fits:
+        raise ValueError(f"modwt_inv_levels: rows of {xw.shape[1]} "
+                         f"{xw.dtype} through {xw.shape[2] - 1} levels fit "
+                         "no cluster (modwt_inv_plan)")
+
+
+_LEVELS = build.Site(
+    "modwt_fw_levels", lambda wt, L, x, out: (L, x, _levels_out(x, L, out)),
+    lambda L, x, out: (x, out),
+    lambda wt, L, x, out: modwt_fw_levels_plain(x, wt, L, out), _levels_plan,
+    result=2, writes=slice(1, None), fits=_levels_fits)
+_INV_LEVELS = build.Site(
+    "modwt_inv_levels", lambda wt, xw, out: (xw, _inv_levels_in(xw, out)),
+    lambda xw, out: (xw, out),
+    lambda wt, xw, out: modwt_inv_levels_plain(xw, wt, out),
+    _inv_levels_plan, result=1, writes=slice(1, None),
+    fits=_inv_levels_fits)
+_FW = build.Site(
+    "modwt_fw", lambda wt, j, v, v1, w1: (j, v, *_fw_outs(v, j, v1, w1)),
+    lambda j, v, v1, w1: (v, v1, w1),
+    lambda wt, j, v, v1, w1: modwt_fw_plain(v, wt, j, v1, w1), _fw_plan,
+    result=slice(2, 4), writes=slice(1, None))
+_INV = build.Site(
+    "modwt_inv", lambda wt, j, v1, w1, out: (j, v1, w1,
+                                             _inv_out(v1, w1, j, out)),
+    lambda j, v1, w1, out: (v1, w1, out),
+    lambda wt, j, v1, w1, out: modwt_inv_plain(v1, w1, wt, j, out),
+    _inv_plan, result=3, writes=slice(-1, None))
 
 
 def modwt_fw_levels(x, wt, L: int, out=None):
@@ -376,26 +405,7 @@ def modwt_fw_levels(x, wt, L: int, out=None):
     which may not overlap ``x``: detail j in column j-1, the scaling band
     in column L.  Raises for rows that :func:`modwt_plan` does not fit;
     :func:`modwt` runs those one level at a time.  Returns ``out``."""
-    with tracing.span("modwt_fw_levels"):
-        key = build.key("modwt_fw_levels", wt, L, x, out)
-        plan = build.planned(key)
-        if plan is None:
-            out = _levels_out(x, L, out)
-            _check_disjoint((x,), (out,), "modwt_fw_levels")
-            if not _plan_of(x, wt, L).fits:
-                raise ValueError(f"modwt_fw_levels: rows of {x.shape[1]} "
-                                 f"{x.dtype} through {L} levels fit no "
-                                 "cluster (modwt_plan)")
-            if x.device.type == "cpu":
-                return modwt_fw_levels_plain(x, wt, L, out)
-            if not x.numel():
-                return out
-            plan = build.store(key, _levels_plan(x, wt, L, out))
-        elif out is None:
-            out = _levels_out(x, L, None)
-        plan.launch((x, out))
-        LAUNCHES["modwt_fw_levels"] += 1
-        return out
+    return build.run(_LEVELS, wt, (L, x, out))
 
 
 def modwt_inv_levels(xw, wt, out=None):
@@ -404,69 +414,20 @@ def modwt_inv_levels(xw, wt, out=None):
     (unit element stride; allocated when None), which may not overlap
     ``xw``.  Raises for rows that :func:`modwt_inv_plan` does not fit;
     :func:`imodwt` runs those one level at a time.  Returns ``out``."""
-    with tracing.span("modwt_inv_levels"):
-        key = build.key("modwt_inv_levels", wt, xw, out)
-        plan = build.planned(key)
-        if plan is None:
-            out = _inv_levels_in(xw, out)
-            _check_disjoint((xw,), (out,), "modwt_inv_levels")
-            if not _inv_plan_of(xw, wt).fits:
-                raise ValueError(f"modwt_inv_levels: rows of {xw.shape[1]} "
-                                 f"{xw.dtype} through {xw.shape[2] - 1} "
-                                 "levels fit no cluster (modwt_inv_plan)")
-            if xw.device.type == "cpu":
-                return modwt_inv_levels_plain(xw, wt, out)
-            if not xw.numel():
-                return out
-            plan = build.store(key, _inv_levels_plan(xw, wt, out))
-        elif out is None:
-            out = _inv_levels_in(xw, None)
-        plan.launch((xw, out))
-        LAUNCHES["modwt_inv_levels"] += 1
-        return out
+    return build.run(_INV_LEVELS, wt, (xw, out))
 
 
 def modwt_fw(v, wt, j: int, v1=None, w1=None):
     """MODWT level ``j`` of ``v (B, N)``: the planes ``v1`` (scaling) and
     ``w1`` (detail), ``(B, N)`` views with any strides (allocated when both
     are None), which may not overlap ``v``.  Returns ``(v1, w1)``."""
-    with tracing.span("modwt_fw", j):
-        key = build.key("modwt_fw", wt, j, v, v1, w1)
-        plan = build.planned(key)
-        if plan is None:
-            v1, w1 = _fw_outs(v, j, v1, w1)
-            _check_disjoint((v,), (v1, w1), "modwt_fw")
-            if v.device.type == "cpu":
-                return modwt_fw_plain(v, wt, j, v1, w1)
-            if not v.numel():
-                return v1, w1
-            plan = build.store(key, _fw_plan(v, wt, j, v1, w1))
-        elif v1 is None:
-            v1, w1 = _fw_outs(v, j, None, None)
-        plan.launch((v, v1, w1))
-        LAUNCHES["modwt_fw"] += 1
-        return v1, w1
+    return build.run(_FW, wt, (j, v, v1, w1), j)
 
 
 def modwt_inv(v1, w1, wt, j: int, out=None):
     """Inverse of :func:`modwt_fw`: ``(v1, w1)`` -> ``out (B, N)`` (any
     strides; allocated when None), which may not overlap them."""
-    with tracing.span("modwt_inv", j):
-        key = build.key("modwt_inv", wt, j, v1, w1, out)
-        plan = build.planned(key)
-        if plan is None:
-            out = _inv_out(v1, w1, j, out)
-            _check_disjoint((v1, w1), (out,), "modwt_inv")
-            if v1.device.type == "cpu":
-                return modwt_inv_plain(v1, w1, wt, j, out)
-            if not v1.numel():
-                return out
-            plan = build.store(key, _inv_plan(v1, w1, wt, j, out))
-        elif out is None:
-            out = _inv_out(v1, w1, j, None)
-        plan.launch((v1, w1, out))
-        LAUNCHES["modwt_inv"] += 1
-        return out
+    return build.run(_INV, wt, (j, v1, w1, out), j)
 
 
 # --- the multi-level driver ----------------------------------------------------

@@ -34,16 +34,15 @@ from typing import NamedTuple
 
 import torch
 
-from .. import tracing
 from . import build
 from .bands import acc_dtype, band_table, level_bands, tap_count
-from .level2d import (SMEM_LIMIT, _check_disjoint, _check_input, _check_plane,
-                      _planes_args, quads_fw)
+from .level2d import (SMEM_LIMIT, _check_input, _check_plane, _planes_args,
+                      quads_fw)
 
 __all__ = ["LAUNCHES", "PLAIN_CALLS", "stage2_fw", "stage2_fw_plain",
            "stage_tile", "stage_window", "stage_plan", "OUT_NAMES"]
 
-LAUNCHES = {"stage2_fw": 0}
+LAUNCHES = build.counter("stage2_fw")
 PLAIN_CALLS = {"stage2_fw": 0}
 
 OUT_NAMES = ("LL2", "LH1", "HL1", "HH1", "LH2", "HL2", "HH2")
@@ -217,19 +216,31 @@ def stage2_fw_plain(x, wt, outs=None):
     return outs
 
 
-def _plan(x, wt, outs, tile, strips=True):
-    """Kernel N's launch plan for this call's signature."""
+def _plan(wt, x, outs, strips=True):
+    """Kernel N's launch plan for this call's signature (``strips=False``:
+    the first form); raises for a wavelet whose window fits no tile."""
+    tile = stage_tile(wt, x.dtype)
+    if tile is None:
+        raise ValueError(f"stage2_fw: the bands of {wt.name} reach too far "
+                         "for the kernel's shared-memory window")
     table = band_table(wt, False, x.dtype, x.device)
     B, m, n = x.shape
-    return build.Plan("stage2_fw", (
+    return build.Plan(_SITE, (
         build.dtype_code(x.dtype), B, m, n, x, x.stride(0), x.stride(1),
         *_planes_args(outs), table.offs.data_ptr(), table.coefs.data_ptr(),
         *table.counts, table.dmin, table.span, tile, int(strips)),
-        (x, *outs), reads=(0,), keep=table)
+        keep=table)
 
 
-def _launch(x, wt, outs, tile, stream, strips=True):
-    _plan(x, wt, outs, tile, strips).call((x, *outs), stream)
+def _check(wt, x, outs):
+    _check_input(x)
+    return x, _outs(x, outs)
+
+
+_SITE = build.Site(
+    "stage2_fw", _check, lambda x, outs: (x, *outs),
+    lambda wt, x, outs: stage2_fw_plain(x, wt, outs), _plan, result=1,
+    writes=slice(1, None), outs=lambda wt, x, outs: (x, _outs(x, None)))
 
 
 def stage2_fw(x, wt, outs=None):
@@ -239,25 +250,4 @@ def stage2_fw(x, wt, outs=None):
     where :func:`stage_window` gives a window, else its first form with
     :func:`stage_tile`'s tile.  Raises for a wavelet whose window fits no
     tile.  Returns the seven planes."""
-    with tracing.span("stage2_fw"):
-        key = build.key("stage2_fw", wt, x, outs)
-        plan = build.planned(key)
-        if plan is None:
-            _check_input(x)
-            outs = _outs(x, outs)
-            _check_disjoint((x,), outs, "stage2_fw")
-            if x.device.type == "cpu":
-                return stage2_fw_plain(x, wt, outs)
-            tile = stage_tile(wt, x.dtype)
-            if tile is None:
-                raise ValueError(f"stage2_fw: the bands of {wt.name} reach "
-                                 "too far for the kernel's shared-memory "
-                                 "window")
-            if not x.shape[0]:
-                return outs
-            plan = build.store(key, _plan(x, wt, outs, tile))
-        else:                       # the miss hands back a tuple too
-            outs = _outs(x, None) if outs is None else tuple(outs)
-        plan.launch((x, *outs))
-        LAUNCHES["stage2_fw"] += 1
-        return outs
+    return build.run(_SITE, wt, (x, outs if outs is None else tuple(outs)))

@@ -30,7 +30,6 @@ from typing import NamedTuple
 
 import torch
 
-from .. import tracing
 from . import build
 from .bands import (acc_dtype, band_table, level_bands, synthesis_bands,
                     tap_count)
@@ -41,7 +40,7 @@ __all__ = ["LAUNCHES", "PLAIN_CALLS", "tail1d_fits", "tail1d_fw",
            "tail1d_fw_plain", "tail1d_inv", "tail1d_inv_plain", "fw_window",
            "fw_plan", "inv_window", "inv_plan", "TailPlan"]
 
-LAUNCHES = {"tail1d_fw": 0, "tail1d_inv": 0}
+LAUNCHES = build.counter("tail1d_fw", "tail1d_inv")
 PLAIN_CALLS = {"tail1d_fw": 0, "tail1d_inv": 0}
 
 # the staged forms of kernels G and H (csrc/tail1d.cu): their window
@@ -226,35 +225,44 @@ def tail1d_inv_plain(y, wt, L: int, out=None):
     return out
 
 
-def _fw_plan(x, wt, L, out, staged=True):
+def _fw_plan(wt, L, x, out, staged=True):
     """Kernel G's launch plan for this call's signature (``staged=False``:
     the first form)."""
     B, n = x.shape
     table = band_table(wt, False, x.dtype, x.device)
-    return build.Plan("tail1d_fw", (
+    return build.Plan(_FW, (
         build.dtype_code(x.dtype), B, n, L, x, x.stride(0), out,
         out.stride(0), table.offs.data_ptr(), table.coefs.data_ptr(),
         *table.counts, table.dmin, table.span,
-        fw_window(wt) if staged else 0), (x, out), keep=table)
+        fw_window(wt) if staged else 0), keep=table)
 
 
-def _inv_plan(y, wt, L, out, staged=True):
+def _inv_plan(wt, L, y, out, staged=True):
     """Kernel H's launch plan for this call's signature."""
     B, n = y.shape
     table = band_table(wt, True, y.dtype, y.device)
-    return build.Plan("tail1d_inv", (
+    return build.Plan(_INV, (
         build.dtype_code(y.dtype), B, n, L, y, y.stride(0), out,
         out.stride(0), table.offs.data_ptr(), table.coefs.data_ptr(),
         (ctypes.c_int * 4)(*table.counts), table.dmin, table.span,
-        inv_window(wt) if staged else 0), (y, out), keep=table)
+        inv_window(wt) if staged else 0), keep=table)
 
 
-def _launch_fw(x, wt, L, out, stream, staged=True):
-    _fw_plan(x, wt, L, out, staged).call((x, out), stream)
+def _tensors(L, x, out):
+    return x, out
 
 
-def _launch_inv(y, wt, L, out, stream, staged=True):
-    _inv_plan(y, wt, L, out, staged).call((y, out), stream)
+_FW = build.Site(
+    "tail1d_fw",
+    lambda wt, L, x, out: (L, x, _check(x, L, out, "tail1d_fw")), _tensors,
+    lambda wt, L, x, out: tail1d_fw_plain(x, wt, L, out), _fw_plan, result=2,
+    fits=lambda wt, L, x, out: _check_fits(x, wt, False, "tail1d_fw"))
+_INV = build.Site(
+    "tail1d_inv",
+    lambda wt, L, y, out: (L, y, _check(y, L, out, "tail1d_inv")), _tensors,
+    lambda wt, L, y, out: tail1d_inv_plain(y, wt, L, out), _inv_plan,
+    result=2,
+    fits=lambda wt, L, y, out: _check_fits(y, wt, True, "tail1d_inv"))
 
 
 def tail1d_fw(x, wt, L: int, out=None):
@@ -262,22 +270,7 @@ def tail1d_fw(x, wt, L: int, out=None):
     ``(B, n)`` (allocated when None): the staged form where
     :func:`fw_window` gives a window, else the first form.  Raises for a
     row that does not fit (:func:`tail1d_fits`).  Returns ``out``."""
-    with tracing.span("tail1d_fw"):
-        key = build.key("tail1d_fw", wt, L, x, out)
-        plan = build.planned(key)
-        if plan is None:
-            out = _check(x, L, out, "tail1d_fw")
-            _check_fits(x, wt, False, "tail1d_fw")
-            if x.device.type == "cpu":
-                return tail1d_fw_plain(x, wt, L, out)
-            if not x.shape[0]:
-                return out
-            plan = build.store(key, _fw_plan(x, wt, L, out))
-        elif out is None:
-            out = _check(x, L, None, "tail1d_fw")
-        plan.launch((x, out))
-        LAUNCHES["tail1d_fw"] += 1
-        return out
+    return build.run(_FW, wt, (L, x, out))
 
 
 def tail1d_inv(y, wt, L: int, out=None):
@@ -285,19 +278,4 @@ def tail1d_inv(y, wt, L: int, out=None):
     (allocated when None), in one launch: the staged form where
     :func:`inv_window` gives a window, else the first form.  Returns
     ``out``."""
-    with tracing.span("tail1d_inv"):
-        key = build.key("tail1d_inv", wt, L, y, out)
-        plan = build.planned(key)
-        if plan is None:
-            out = _check(y, L, out, "tail1d_inv")
-            _check_fits(y, wt, True, "tail1d_inv")
-            if y.device.type == "cpu":
-                return tail1d_inv_plain(y, wt, L, out)
-            if not y.shape[0]:
-                return out
-            plan = build.store(key, _inv_plan(y, wt, L, out))
-        elif out is None:
-            out = _check(y, L, None, "tail1d_inv")
-        plan.launch((y, out))
-        LAUNCHES["tail1d_inv"] += 1
-        return out
+    return build.run(_INV, wt, (L, y, out))

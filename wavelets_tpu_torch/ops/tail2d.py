@@ -31,7 +31,6 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .. import tracing
 from . import build
 from .bands import (acc_dtype, band_table, level_bands, synthesis_bands,
                     tap_count)
@@ -42,7 +41,7 @@ __all__ = ["LAUNCHES", "PLAIN_CALLS", "TailPlan", "tail_fits", "tail_plan",
            "cluster_plan", "tail_fw", "tail_fw_plain", "tail_inv",
            "tail_inv_plain"]
 
-LAUNCHES = {"tail_fw": 0, "tail_inv": 0}
+LAUNCHES = build.counter("tail_fw", "tail_inv")
 PLAIN_CALLS = {"tail_fw": 0, "tail_inv": 0}
 
 
@@ -222,77 +221,53 @@ def _plan_args(plan):
                                *plan.halo), plan.smem)
 
 
-def _fw_plan(x, wt, L, out, plan=None):
+def _fw_plan(wt, L, x, out, plan=None):
     """Kernel C's launch plan for this call's signature (``plan``: the
     tail's, else :func:`tail_plan`'s)."""
     B, m, n = x.shape
     plan = plan or tail_plan(B, m, n, L, wt, x.dtype)
     table = band_table(wt, False, x.dtype, x.device)
-    return build.Plan("tail_fw", (
+    return build.Plan(_FW, (
         build.dtype_code(x.dtype), B, m, n, L, x, x.stride(0), x.stride(1),
         out, out.stride(0), out.stride(1), table.offs.data_ptr(),
         table.coefs.data_ptr(), *table.counts, *_plan_args(plan)),
-        (x, out), keep=table)
+        keep=table)
 
 
-def _inv_plan(y, wt, L, out, plan=None):
+def _inv_plan(wt, L, y, out, plan=None):
     """Kernel D's launch plan for this call's signature."""
     B, m, n = y.shape
     plan = plan or tail_plan(B, m, n, L, wt, y.dtype, True)
     table = band_table(wt, True, y.dtype, y.device)
-    return build.Plan("tail_inv", (
+    return build.Plan(_INV, (
         build.dtype_code(y.dtype), B, m, n, L, y, y.stride(0), y.stride(1),
         out, out.stride(0), out.stride(1), table.offs.data_ptr(),
         table.coefs.data_ptr(), (ctypes.c_int * 4)(*table.counts),
-        *_plan_args(plan)), (y, out), keep=table)
+        *_plan_args(plan)), keep=table)
 
 
-def _launch_fw(x, wt, L, out, stream, plan=None):
-    _fw_plan(x, wt, L, out, plan).call((x, out), stream)
+def _tensors(L, x, out):
+    return x, out
 
 
-def _launch_inv(y, wt, L, out, stream, plan=None):
-    _inv_plan(y, wt, L, out, plan).call((y, out), stream)
+_FW = build.Site(
+    "tail_fw", lambda wt, L, x, out: (L, x, _check(x, L, out, "tail_fw")),
+    _tensors, lambda wt, L, x, out: tail_fw_plain(x, wt, L, out), _fw_plan,
+    result=2, fits=lambda wt, L, x, out: _check_fits(x, wt, False, "tail_fw"))
+_INV = build.Site(
+    "tail_inv", lambda wt, L, y, out: (L, y, _check(y, L, out, "tail_inv")),
+    _tensors, lambda wt, L, y, out: tail_inv_plain(y, wt, L, out), _inv_plan,
+    result=2, fits=lambda wt, L, y, out: _check_fits(y, wt, True, "tail_inv"))
 
 
 def tail_fw(x, wt, L: int, out=None):
     """L forward levels of ``x (B, m, n)`` in one launch -> packed ``out``
     ``(B, m, n)`` (allocated when None).  Raises for an array that does not
     fit (:func:`tail_fits`).  Returns ``out``."""
-    with tracing.span("tail_fw"):
-        key = build.key("tail_fw", wt, L, x, out)
-        plan = build.planned(key)
-        if plan is None:
-            out = _check(x, L, out, "tail_fw")
-            _check_fits(x, wt, False, "tail_fw")
-            if x.device.type == "cpu":
-                return tail_fw_plain(x, wt, L, out)
-            if not x.shape[0]:
-                return out
-            plan = build.store(key, _fw_plan(x, wt, L, out))
-        elif out is None:
-            out = _check(x, L, None, "tail_fw")
-        plan.launch((x, out))
-        LAUNCHES["tail_fw"] += 1
-        return out
+    return build.run(_FW, wt, (L, x, out))
 
 
 def tail_inv(y, wt, L: int, out=None):
     """Inverse of :func:`tail_fw`: packed ``y (B, m, n)`` -> ``out``
     ``(B, m, n)`` (allocated when None), in one launch.  Returns ``out``."""
-    with tracing.span("tail_inv"):
-        key = build.key("tail_inv", wt, L, y, out)
-        plan = build.planned(key)
-        if plan is None:
-            out = _check(y, L, out, "tail_inv")
-            _check_fits(y, wt, True, "tail_inv")
-            if y.device.type == "cpu":
-                return tail_inv_plain(y, wt, L, out)
-            if not y.shape[0]:
-                return out
-            plan = build.store(key, _inv_plan(y, wt, L, out))
-        elif out is None:
-            out = _check(y, L, None, "tail_inv")
-        plan.launch((y, out))
-        LAUNCHES["tail_inv"] += 1
-        return out
+    return build.run(_INV, wt, (L, y, out))

@@ -3,13 +3,14 @@
 Spans: ``with tracing.span(name, tag):`` at each layer boundary of a call.
 The public calls of ``transforms.py`` open the root spans (``dwt``,
 ``idwt``, ...), the drivers one span each (``pyramid2d.dwt2``, ...), and
-every launch wrapper of ``ops/`` one span named as its ``LAUNCHES`` key,
-with one child ``<key>.call`` around the call into the kernels' library
-(:meth:`ops.build.Plan.call`).  Tracing is off at import; :func:`enable` and
-:func:`disable` switch it.  Off, :func:`span` makes one global check and
-hands back a shared context that does nothing.  On, each span is kept in
-memory, up to a bound (beyond it spans are counted as dropped), until
-:func:`take` hands them over and clears them.
+every launch wrapper of ``ops/`` one span named as its ``LAUNCHES`` key
+(:func:`ops.build.run`), with one child ``<key>.call`` around the call
+into the kernels' library (:meth:`ops.build.Plan.call`).  Tracing is off
+at import; :func:`enable` and :func:`disable` switch it.  Off,
+:func:`span` makes one global check and hands back a shared context that
+does nothing.  On, each span is kept in memory, up to a bound (beyond it
+spans are counted as dropped), until :func:`take` hands them over and
+clears them.
 
 A span is its ``name``, a small integer ``tag`` (the levels of a public
 call or a driver, a launch's level where the caller has it, else -1), its
@@ -20,8 +21,9 @@ maps a stamp onto the Unix-epoch clock of the profiler's host events
 (``stamp + offset_ns``).
 
 Counters are the ops modules' dicts, incremented whether tracing is on or
-not: ``LAUNCHES`` and ``PLAIN_CALLS`` of each launch wrapper's module,
-``scratch.ALLOCATED`` (bytes the drivers' scratch buffers took),
+not: ``LAUNCHES`` (raised by :meth:`ops.build.Plan.launch`) and
+``PLAIN_CALLS`` of each launch wrapper's module, ``scratch.ALLOCATED``
+(bytes the drivers' scratch buffers took),
 ``parallel.sharded.STATS``, ``parallel.mesh.COPIES``, ``build.PLANS``
 (the launch plans' hits and misses, :class:`ops.build.Plan`) and
 ``pyramid2d.GRAPHS`` (the 2-D driver's CUDA calls by how they ran:
