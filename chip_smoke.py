@@ -103,6 +103,14 @@ exits non-zero:
                   the caller's graph must replay to the same bits); and a
                   profiled stretch of replays whose kernels must equal the
                   rise of the launch counters.
+  2h. kernelslevel3d -- the one-pass 3-D level (level3_fw, level3_inv,
+                  csrc/level3d.cu) through the 3-D driver's one-pass route
+                  against its A+I / J+B chain on the card, levels 1-3 of
+                  512^3, 256^3 and (64, 32, 128) (haar lifting; haar as a
+                  filter at the two smaller): bit for bit in float32 and
+                  float64; in bfloat16 no further from the float64 chain
+                  than the chain is.  dwt/idwt route haar to one launch a
+                  level, cdf97 and db2 to the chain.
   3. main      -- dwt/idwt of the 16384^2 float32 image, cdf97 lifting, 8
                   levels, through the public entry points; the launch counts
                   show the route, the round trip is checked, and smaller
@@ -115,7 +123,8 @@ exits non-zero:
                   levels (kernels A then I per forward level, J then B per
                   inverse level), with its launch table, its f32 round
                   trip, the plain float64 version, and a float64 round trip
-                  at 128^3.
+                  at 128^3; and haar lifting the same way (one level3_fw
+                  and one level3_inv launch per level).
   3d. mainmodwt -- modwt/imodwt of (512, 8192) float32 rows, db4, 6 levels
                   (one modwt_fw_levels and one modwt_inv_levels launch), checked
                   the same way; and of (8, 2^20) rows, too long for the
@@ -153,7 +162,10 @@ exits non-zero:
                   modwt_inv_levels (beside its plain version, the chain of
                   M launches it replaces and L dilated conv1d calls); for K
                   also the contiguous store and the permuted copy that the
-                  column store replaces.
+                  column store replaces; level3_fw and level3_inv at 256^3
+                  level 1 beside their plain versions, and by profiler time
+                  at levels 1-3 of 512^3 and 256^3 beside the A + I and J +
+                  B launches they replace (timeslevel3d).
   4d. timessharded -- the sharded forward and inverse on 4 shards and on 1,
                   the TI denoise (one spin at a time) and the best-basis
                   search (bench.py's inputs), with host times; I and J in
@@ -211,7 +223,7 @@ exits non-zero:
 Then the run's wall time, nvidia-smi's line again, the per-kernel JSON line
 (a row per kernel, and one per TPU kernel that a route of 3g maps onto one
 of them; "redesigned" names a kernel's Hopper form: "tiled", "cluster",
-"strips" or "staged"),
+"strips", "staged" or "one pass"),
 and last {"ok": true, "device": {...}}.
 """
 
@@ -231,9 +243,9 @@ from wavelets_tpu_torch import parallel
 from wavelets_tpu_torch import profiling as P
 from wavelets_tpu_torch.parallel import mesh as pmesh, sharded as psharded
 from wavelets_tpu_torch.ops import (axis0, bands, build, dwt1d, dwt3d, graph,
-                                    level1d, level2d, lifting, modwt1d,
-                                    pyramid2d, rowcol2d, stage2d, tail1d,
-                                    tail2d)
+                                    level1d, level2d, level3d, lifting,
+                                    modwt1d, pyramid2d, rowcol2d, stage2d,
+                                    tail1d, tail2d)
 from wavelets_tpu_torch.ops import modwt as modwt_ops
 from wavelets_tpu_torch.ops import wpt as wpt_ops
 from wavelets_tpu_torch.threshold import entropy as th_entropy
@@ -317,7 +329,13 @@ PEAK_FLOPS_F32 = 67e12
 # a library call computes the kernel's function within this of the plain
 # version (cuDNN sums in another order)
 LIBRARY_TOL = 1e-4
-MODULES = (level2d, tail2d, level1d, tail1d, axis0, modwt1d, stage2d)
+MODULES = (level2d, tail2d, level1d, tail1d, axis0, modwt1d, stage2d,
+           level3d)
+# the one-pass 3-D level: the volumes held against the A+I / J+B chain at
+# levels 1-3 (the smaller ones for haar as a filter too), and the cube
+# sizes timed level by level
+SHAPES_LEVEL3 = ((512, 512, 512), (256, 256, 256), (64, 32, 128))
+SIZES_LEVEL3_TIMES = (512, 256)
 # the halo mode: wavelets, and (B, R, C) shapes with R = 2H as "2H"
 WAVELETS_HALO = WAVELETS + (("sym5", "filter"),)
 SHAPES_HALO = ((1, "2H", 1), (3, "2H", 5), (2, 64, 3), (4, 96, 160),
@@ -1397,6 +1415,82 @@ def phase_kernels3d(dev):
           "worst_rel_err": worst})
 
 
+def same_bits(a, b):
+    """Whether ``a`` and ``b`` hold the same bits (NaN and -0 included)."""
+    return a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+def phase_kernelslevel3d(dev):
+    """Phase 2h: the one-pass 3-D level against the A+I / J+B chain."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    cases, errs = 0, {}
+    for shape in SHAPES_LEVEL3:
+        x64 = torch.randn(shape, generator=gen, device=dev,
+                          dtype=torch.float64)
+        kinds = ("lifting",) if shape[0] >= 512 else ("lifting", "filter")
+        for kind in kinds:
+            wt = wavelet("haar", kind)
+            for L in (1, 2, 3):
+                for dt in (torch.float32, torch.float64):
+                    x = x64.to(dt)
+                    before = counts()[0]["level3_fw"]
+                    y = dwt3d.one_pass_fw(x, wt, L)
+                    torch.cuda.synchronize()
+                    require(counts()[0]["level3_fw"] == before + L,
+                            "one level3_fw launch a level")
+                    yc = dwt3d.chain_fw(x, wt, L)
+                    require(same_bits(y, yc), f"level3_fw {kind} {shape} "
+                            f"L{L} {dt}: bit for bit the A+I chain")
+                    xr = dwt3d.one_pass_inv(yc, wt, L)
+                    xc = dwt3d.chain_inv(yc, wt, L)
+                    require(same_bits(xr, xc), f"level3_inv {kind} {shape} "
+                            f"L{L} {dt}: bit for bit the J+B chain")
+                    del y, yc, xr, xc
+                    cases += 1
+                # bfloat16: no further from the float64 chain than the
+                # chain, forward and inverse
+                xb = x64.to(torch.bfloat16)
+                ref = dwt3d.chain_fw(xb.double(), wt, L)
+                yb, ycb = dwt3d.one_pass_fw(xb, wt, L), dwt3d.chain_fw(
+                    xb, wt, L)
+                e_fw, e_fw_chain = max_abs(yb, ref), max_abs(ycb, ref)
+                refi = dwt3d.chain_inv(ycb.double(), wt, L)
+                e_inv = max_abs(dwt3d.one_pass_inv(ycb, wt, L), refi)
+                e_inv_chain = max_abs(dwt3d.chain_inv(ycb, wt, L), refi)
+                require(e_fw <= e_fw_chain and e_inv <= e_inv_chain,
+                        f"level3 bf16 {kind} {shape} L{L}: {e_fw:.3e} / "
+                        f"{e_inv:.3e} against the chain's {e_fw_chain:.3e} "
+                        f"/ {e_inv_chain:.3e}")
+                errs[f"{kind}_{'x'.join(map(str, shape))}_L{L}"] = {
+                    "fw": e_fw, "fw_chain": e_fw_chain, "inv": e_inv,
+                    "inv_chain": e_inv_chain}
+                del xb, ref, yb, ycb, refi
+                cases += 1
+        del x64
+        torch.cuda.empty_cache()
+    # the public route: haar one launch a level, cdf97 and db2 the chain
+    x = torch.randn((32, 16, 64), generator=gen, device=dev)
+    for (name, kind), route in ((("haar", "lifting"), {"level3_fw": 2,
+                                                       "level3_inv": 2}),
+                                (("haar", "filter"), {"level3_fw": 2,
+                                                      "level3_inv": 2}),
+                                (("cdf97", "lifting"), {
+                                    "level_fw": 2, "axis0_fw": 2,
+                                    "axis0_inv": 2, "level_inv": 2}),
+                                (("db2", "filter"), {
+                                    "level_fw": 2, "axis0_fw": 2,
+                                    "axis0_inv": 2, "level_inv": 2})):
+        wt = wavelet(name, kind)
+        run_route(f"3d {name} {kind}", lambda v: w.dwt(v, wt, 2),
+                  lambda v: w.idwt(v, wt, 2), x, route)
+        cases += 1
+    emit({"phase": "kernelslevel3d", "cases": cases,
+          "shapes": [list(t) for t in SHAPES_LEVEL3],
+          "f32_f64": "bit for bit the A+I / J+B chain",
+          "bf16_max_abs_err_vs_f64_chain": errs})
+
+
 def phase_kernelsmodwt(dev):
     rng = np.random.default_rng(4)
     worst = {}
@@ -2057,13 +2151,28 @@ def phase_main3d(x3):
     xs = x3[:32, :32, :32].double()
     es = rel_err(w.dwt(xs, wt, L), lifting.dwt_nd_lifting(xs, wt, L, 3))
     require(es <= 1e-12, f"32^3 f64 vs lifting engine {es:.3e} <= 1e-12")
+    # haar: one launch of the one-pass level a level
+    haar = wavelet("haar", "lifting")
+    route_h = {"level3_fw": L, "level3_inv": L}
+    yh, launches_h, wall_h, rt_h = run_route(
+        "3d haar", lambda v: w.dwt(v, haar, L), lambda v: w.idwt(v, haar, L),
+        x3, route_h)
+    eh = rel_err(yh, dwt3d.dwt3(x3.double(), haar, L, plain=True))
+    require(eh <= 1e-5, f"256^3 haar f32 vs plain f64 {eh:.3e} <= 1e-5")
+    del yh
+    rth = (w.idwt(w.dwt(x128, haar, L), haar, L) - x128).abs().max().item()
+    require(rth <= 1e-12, f"128^3 haar f64 round trip {rth:.3e} <= 1e-12")
     emit({"phase": "main3d", "shape": list(x3.shape), "levels": L,
           "dtype": "float32", "launches": route,
           "wall_s_first_call_pair": wall, "roundtrip_max_abs_err": rt,
           "f32_vs_plain_f64_rel_err": e32,
           "f64_roundtrip_128_max_abs_err": rt64,
-          "f64_vs_lifting_engine_32_rel_err": es})
-    return launches
+          "f64_vs_lifting_engine_32_rel_err": es,
+          "haar": {"launches": route_h, "wall_s_first_call_pair": wall_h,
+                   "roundtrip_max_abs_err": rt_h,
+                   "f32_vs_plain_f64_rel_err": eh,
+                   "f64_roundtrip_128_max_abs_err": rth}})
+    return {**launches, **{k: v for k, v in launches_h.items() if v}}
 
 
 def phase_mainmodwt(xm, xlong):
@@ -3161,6 +3270,10 @@ def phase_times3d(x3):
     out = {"phase": "times3d", "shape": list(x3.shape), "levels": L}
     for tag, xt in (("f32", x3), ("bf16", x3.to(torch.bfloat16))):
         out[tag] = path_times(fw, inv, xt, P.geometric3d(L))
+    haar = wavelet("haar", "lifting")
+    out["f32_haar"] = path_times(lambda v: w.dwt(v, haar, L),
+                                 lambda v: w.idwt(v, haar, L), x3,
+                                 P.geometric3d(L))
     out["f32"]["plain_fw_ms"] = P.time_fn(
         lambda v: dwt3d.dwt3(v, wt, L, plain=True), x3, 1, chain=False) * 1e3
     y = fw(x3)
@@ -3190,12 +3303,88 @@ def phase_times3d(x3):
         (dwt3d._rows(sr),), TOL[x3.dtype],
         library_axis0_inv(yl[: D // 2], yl[D // 2:], wt),
         lambda o: [dwt3d._rows(interleave_rows(o, x3.shape))])
+    # the one-pass level at level 1 (haar), into the packed layout of one
+    # volume and back
+    rows["level3_fw"] = kernel_row(
+        "level3_fw", lambda: level3d.level3_fw(x3, haar, yl),
+        lambda: level3d.level3_fw_plain(x3, haar, yl), (yl,),
+        TOL[x3.dtype])
+    rows["level3_inv"] = kernel_row(
+        "level3_inv", lambda: level3d.level3_inv(yl, haar, sr),
+        lambda: level3d.level3_inv_plain(yl, haar, sr), (sr,),
+        TOL[x3.dtype])
     nbytes = 2 * x3.numel() * 4
-    for name, inverse in (("axis0_fw", False), ("axis0_inv", True)):
+    for name, inverse, w_ in (("axis0_fw", False, wt), ("axis0_inv", True, wt),
+                              ("level3_fw", False, haar),
+                              ("level3_inv", True, haar)):
+        passes = 3 if name.startswith("level3") else 1
         rows[name]["bound_ms"], rows[name]["bound_by"] = bound(
-            nbytes, taps(wt, inverse) * x3.numel())
+            nbytes, passes * taps(w_, inverse) * x3.numel())
         rows[name]["copy_bound_ms"] = out["f32"]["copy_ms"]
+    level3_times(x3.device, rows)
     return rows
+
+
+def level3_times(dev, rows):
+    """Phase 4c's timeslevel3d: device microseconds (profiler) of
+    level3_fw and level3_inv at levels 1-3 of float32 cubes of
+    SIZES_LEVEL3_TIMES, beside the two launches each replaces on the same
+    views (A + I, J + B), the level's bytes at 3.35 TB/s and at the run's
+    copy rate; 256^3 level 1 goes into the kernels' rows."""
+    wt = wavelet("haar", "lifting")
+    out = {"phase": "timeslevel3d", "dtype": "float32", "wavelet": "haar"}
+    for size in SIZES_LEVEL3_TIMES:
+        x = torch.randn((size,) * 3, device=dev)
+        _, bw = P.copy_bandwidth(x, 10)
+        y, s, back = (torch.empty_like(x) for _ in range(3))
+        lll = torch.empty(x.numel() // 8, device=dev)
+        levels = []
+        for l in (1, 2, 3):
+            d = size >> (l - 1)
+            levels.append(level3_level_times(x, y, s, back, lll, d, l == 3,
+                                             wt, bw))
+        out[f"{size}^3"] = levels
+        if size == 256:
+            first = levels[0]
+            for key in ("fw", "inv"):
+                rows[f"level3_{key}"].update(
+                    device_us=first[f"{key}_us"],
+                    chain_device_us=first[f"{key}_chain_us"])
+        del x, y, s, back, lll
+        torch.cuda.empty_cache()
+    emit(out)
+
+
+def level3_level_times(x, y, s, back, lll, d, deepest, wt, bw):
+    """One level's device times: the active (d, d, d) cube (contiguous,
+    as the driver's scratch holds it), its octants in the packed ``y``
+    (the scaling one in ``lll`` above the deepest level), A's scratch and
+    J's output in ``s``, the level's result in ``back``."""
+    act = x.view(-1)[: d ** 3].view(d, d, d)
+    sub = y[:d, :d, :d]
+    lll = None if deepest else lll[: (d // 2) ** 3].view(d // 2, d // 2,
+                                                       d // 2)
+    sv = s.view(-1)[: d ** 3].view(d, d, d)
+    res = back.view(-1)[: d ** 3].view(d, d, d)
+    halves = dwt3d._rows(sub[: d // 2]), dwt3d._rows(sub[d // 2:])
+    corner = None if deepest else dwt3d._rows(lll)
+
+    def chain_fw():
+        level2d.level_fw(act, wt, dwt3d._quads(sv))
+        axis0.axis0_fw(dwt3d._rows(sv), wt, *halves)
+
+    def chain_inv():
+        axis0.axis0_inv(*halves, wt, out=dwt3d._rows(sv), corner=corner)
+        level2d.level_inv(*dwt3d._quads(sv), wt, out=res)
+
+    nbytes = 2 * d ** 3 * 4
+    return {"d": d,
+            "fw_us": device_us(lambda: level3d.level3_fw(act, wt, y, lll)),
+            "fw_chain_us": device_us(chain_fw),
+            "inv_us": device_us(lambda: level3d.level3_inv(y, wt, res, lll)),
+            "inv_chain_us": device_us(chain_inv),
+            "bound_us": nbytes / PEAK_BYTES_S * 1e6,
+            "copy_rate_us": nbytes / bw * 1e6}
 
 
 def phase_timesmodwt(xm):
@@ -3588,6 +3777,7 @@ def main():
     phase_kernels(dev)
     phase_kernels1d(dev)
     phase_kernels3d(dev)
+    phase_kernelslevel3d(dev)
     phase_kernelsmodwt(dev)
     phase_kernelshalo(dev)
     phase_kernelsstage(dev)
@@ -3600,7 +3790,8 @@ def main():
     launches.update({k: v for k, v in phase_main1d(xs).items()
                      if k.endswith(("1d_fw", "1d_inv"))})
     launches.update({k: v for k, v in phase_main3d(xs[(SIZE3D,) * 3]).items()
-                     if k in ("axis0_fw", "axis0_inv")})
+                     if k in ("axis0_fw", "axis0_inv", "level3_fw",
+                              "level3_inv")})
     xlong = xs[(1 << 24,)].view(-1, MODWT_LONG[1])[:MODWT_LONG[0]]
     launches.update({k: v for k, v in phase_mainmodwt(xs[MODWT_SHAPE],
                                                       xlong).items()
@@ -3640,7 +3831,8 @@ def main():
            "modwt_fw": "modwt1d.cu", "modwt_inv": "modwt1d.cu",
            "modwt_fw_levels": "modwt1d.cu", "modwt_inv_levels": "modwt1d.cu",
            "axis0_fw_halo": "axis0.cu", "axis0_inv_halo": "axis0.cu",
-           "stage2_fw": "stage2d.cu"}
+           "stage2_fw": "stage2d.cu", "level3_fw": "level3d.cu",
+           "level3_inv": "level3d.cu"}
     replaces = {"level_fw": "wavelets_tpu/ops/pallas/mxu2d.py:1610",
                 "level_inv": "wavelets_tpu/ops/pallas/mxu2d.py:1236",
                 "tail_fw": "wavelets_tpu/ops/pallas/tail2d.py:52",
@@ -3657,7 +3849,9 @@ def main():
                 "modwt_inv_levels": "wavelets_tpu/ops/pallas/modwt1d.py:93",
                 "axis0_fw_halo": "wavelets_tpu/ops/pallas/axis0.py:318",
                 "axis0_inv_halo": "wavelets_tpu/ops/pallas/axis0.py:417",
-                "stage2_fw": "wavelets_tpu/ops/pallas/stage2d.py:154"}
+                "stage2_fw": "wavelets_tpu/ops/pallas/stage2d.py:154",
+                "level3_fw": "wavelets_tpu/ops/pallas/dwt3d.py:56",
+                "level3_inv": "wavelets_tpu/ops/pallas/dwt3d.py:86"}
     # the kernels redesigned for Hopper and their form: persistent blocks
     # staging 16-byte tiles with the bands in registers ("tiled", where
     # the span is below 16), a thread-block cluster per image or row, N's
@@ -3670,7 +3864,8 @@ def main():
                   "level1d_inv": "tiled", "axis0_inv": "tiled",
                   "axis0_inv_halo": "tiled", "axis0_fw": "tiled",
                   "axis0_fw_halo": "tiled", "stage2_fw": "strips",
-                  "tail1d_fw": "staged", "tail1d_inv": "staged"}
+                  "tail1d_fw": "staged", "tail1d_inv": "staged",
+                  "level3_fw": "one pass", "level3_inv": "one pass"}
     # the TPU kernels that a route of phase 3g runs on a kernel above: its
     # name, the kernel, the row of measurements, the TPU kernel, and its
     # launches on that route

@@ -102,8 +102,8 @@ def test_import_builds_nothing():
 
 def test_build_key_follows_sources():
     assert [p.name for p in build.SOURCES] == [
-        "axis0.cu", "graph.cu", "level1d.cu", "level2d.cu", "modwt1d.cu",
-        "stage2d.cu", "tail1d.cu", "tail2d.cu"]
+        "axis0.cu", "graph.cu", "level1d.cu", "level2d.cu", "level3d.cu",
+        "modwt1d.cu", "stage2d.cu", "tail1d.cu", "tail2d.cu"]
     assert set(build._SIGNATURES) >= {"wtt_axis0_fw", "wtt_axis0_inv",
                                       "wtt_axis0_fw_halo",
                                       "wtt_axis0_inv_halo",

@@ -19,8 +19,8 @@ import pytest
 import torch
 
 import wavelets_tpu_torch as T
-from wavelets_tpu_torch.ops import (axis0, build, level1d, level2d, modwt1d,
-                                    stage2d, tail1d, tail2d)
+from wavelets_tpu_torch.ops import (axis0, build, level1d, level2d, level3d,
+                                    modwt1d, stage2d, tail1d, tail2d)
 from wavelets_tpu_torch.wt.carriers import OrthoFilter
 
 
@@ -78,6 +78,10 @@ WAVELETS = {
 }
 # the MODWT takes orthogonal filters only: cdf97's cases run haar's
 ORTHO = dict(WAVELETS, cdf97=T.wavelet(T.wt.haar))
+# the one-pass 3-D level takes pair-reach wavelets only: haar as a lifting
+# scheme (cdf97's and sym5's cases) and as a filter (db4's and haar's)
+PAIR = dict.fromkeys(("cdf97", "sym5"), T.wavelet(T.wt.haar, "lifting")) | \
+    dict.fromkeys(("db4", "haar"), T.wavelet(T.wt.haar))
 DTYPES = (torch.float32, torch.float64, torch.bfloat16)
 SHAPES = ((2, 64, 64), (1, 128, 64))      # (B, m, n); 1-D rows (B, m n)
 
@@ -155,6 +159,18 @@ def _axis0_inv(shape, dtype, halo=False, corner=False):
             "corner": (_t((1, R // 2, C // 2), dtype) if corner else None),
             "halos": (tuple(_t((B, 8, C), dtype) for _ in range(4))
                       if halo else None)}
+
+
+def _volume(shape):
+    """SHAPES as (d, m, n) volumes of an even depth."""
+    d, m, n = shape
+    return 2 * -(-d // 2), m, n
+
+
+def _level3(shape, dtype, lll=True):
+    d, m, n = shape = _volume(shape)
+    return {"x": _t(shape, dtype), "y": _t(shape, dtype),
+            "lll": _t((d // 2, m // 2, n // 2), dtype) if lll else None}
 
 
 def _modwt_levels(shape, dtype):
@@ -271,6 +287,24 @@ SITES = {
         lambda wt, c: axis0._inv_plan(wt, c["a"], c["d"], c["out"], None,
                                       c["halos"]),
         lambda c: (c["a"], c["d"], *c["halos"], c["out"])),
+    "level3_fw": (
+        _level3,
+        lambda wt, c: level3d.level3_fw(c["x"], wt, c["y"], c["lll"]),
+        lambda wt, c: ("level3_fw", wt, c["x"], c["y"], c["lll"]),
+        lambda wt, c: level3d._fw_plan(wt, c["x"], c["y"], c["lll"]),
+        lambda c: (c["x"], c["y"], c["lll"])),
+    "level3_fw.deepest": (
+        lambda s, dt: _level3(s, dt, lll=False),
+        lambda wt, c: level3d.level3_fw(c["x"], wt, c["y"]),
+        lambda wt, c: ("level3_fw", wt, c["x"], c["y"], None),
+        lambda wt, c: level3d._fw_plan(wt, c["x"], c["y"], None),
+        lambda c: (c["x"], c["y"])),
+    "level3_inv": (
+        _level3,
+        lambda wt, c: level3d.level3_inv(c["y"], wt, c["x"], c["lll"]),
+        lambda wt, c: ("level3_inv", wt, c["y"], c["x"], c["lll"]),
+        lambda wt, c: level3d._inv_plan(wt, c["y"], c["x"], c["lll"]),
+        lambda c: (c["y"], c["lll"], c["x"])),
     "modwt_fw_levels": (
         _modwt_levels,
         lambda wt, c: modwt1d.modwt_fw_levels(c["x"], wt, c["L"], c["out"]),
@@ -302,7 +336,8 @@ SITES = {
 
 
 def _wavelet(site, name):
-    return (ORTHO if site.startswith("modwt") else WAVELETS)[name]
+    return (ORTHO if site.startswith("modwt") else
+            PAIR if site.startswith("level3") else WAVELETS)[name]
 
 
 def _stored(site, wt, c):
@@ -312,7 +347,8 @@ def _stored(site, wt, c):
     return build.store(build.key(*key(wt, c)), plan(wt, c))
 
 
-MODULES = (axis0, level1d, level2d, modwt1d, stage2d, tail1d, tail2d)
+MODULES = (axis0, level1d, level2d, level3d, modwt1d, stage2d, tail1d,
+           tail2d)
 
 
 def test_every_launch_key_has_a_site():
@@ -320,7 +356,7 @@ def test_every_launch_key_has_a_site():
     for mod in MODULES:
         keys |= set(mod.LAUNCHES)
     assert keys == {s.split(".")[0] for s in SITES}
-    assert len(keys) == 17 and len(SITES) == 18
+    assert len(keys) == 19 and len(SITES) == 21
 
 
 @pytest.mark.parametrize("mod", MODULES, ids=lambda m: m.__name__)

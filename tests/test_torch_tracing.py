@@ -25,7 +25,9 @@ CASES = {
            ("pyramid2d.dwt2", "pyramid2d.idwt2"),
            {"level_fw", "tail_fw", "level_inv", "tail_inv"}),
     "3d": ((16, 16, 8), 3, 2, "haar", ("dwt3d.dwt3", "dwt3d.idwt3"),
-           {"level_fw", "axis0_fw", "axis0_inv", "level_inv"}),
+           {"level3_fw", "level3_inv"}),
+    "3d_chain": ((16, 16, 8), 3, 2, "cdf97", ("dwt3d.dwt3", "dwt3d.idwt3"),
+                 {"level_fw", "axis0_fw", "axis0_inv", "level_inv"}),
 }
 
 
@@ -125,8 +127,12 @@ SCRATCH = {
     # 16384^2 L8 runs A at levels 1-7, then the tail; 512^2 L6 runs A at
     # levels 1-2, then the tail: both ping-pong through two buffers
     "img16k_L8": ((512, 512), 6, "cdf97", 2),
-    # 512^3 L3: one buffer forward, two inverse
+    # 512^3 L3 (haar: one pass a level): per direction an eighth and a
+    # sixty-fourth of the volume
     "vol512_L3": ((32, 32, 32), 3, "haar", 3),
+    # a wider wavelet (two launches a level): forward the volume, inverse
+    # the volume and its eighth
+    "vol_cdf97_L3": ((32, 32, 32), 3, "cdf97", 3),
 }
 
 
@@ -141,8 +147,9 @@ def test_scratch_bytes_are_counted_exactly(cell):
         assert 2 <= pyramid2d.kernel_levels(m, n, L, wt, x.dtype, False) < L
         # per direction: an (m/2, n/2) and an (m/4, n/4) buffer
         want = 2 * (one // 4 + one // 16)
+    elif name == "haar":
+        want = 2 * (one // 8 + one // 64)
     else:
-        # forward: the volume; inverse: the volume and its eighth
         want = one + one + one // 8
     before = scratch.ALLOCATED["bytes"]
     T.idwt(T.dwt(x, wt, L, ndt=ndt), wt, L, ndt=ndt)
@@ -220,7 +227,7 @@ def test_counters_name_every_counting_module():
             counting.add(f"ops.{info.name}")
             assert tracing.COUNTERS[f"ops.{info.name}"] == ("LAUNCHES",
                                                             "PLAIN_CALLS")
-    assert len(counting) == 7
+    assert len(counting) == 8
     got = tracing.counters()
     assert got["scratch.ALLOCATED.bytes"] == scratch.ALLOCATED["bytes"]
     assert "sharded.STATS.sharded_levels" in got

@@ -118,6 +118,14 @@ _SIGNATURES = {
     # x, xsb, xsr, offs, coefs, counts[], smin, span, stream
     "wtt_axis0_inv_halo": [_I, _I, _I, _I, _P, _L, _L, _P, _L, _L, _P, _P, _P,
                            _I, _P, _L, _L, _P, _P, _P, _I, _I, _P],
+    # dtype, dh, mh, nh, x, xsd, xsr, y, ysd, ysr, lll, lsd, lsr, offs,
+    # coefs, ns, nd, stream
+    "wtt_level3_fw": [_I, _I, _I, _I, _P, _L, _L, _P, _L, _L, _P, _L, _L, _P,
+                      _P, _I, _I, _P],
+    # dtype, dh, mh, nh, y, ysd, ysr, lll, lsd, lsr, x, xsd, xsr, offs,
+    # coefs, counts[], stream
+    "wtt_level3_inv": [_I, _I, _I, _I, _P, _L, _L, _P, _L, _L, _P, _L, _L,
+                       _P, _P, _P, _P],
     # dtype, B, N, dil, v, vsr, vse, v1, v1sr, v1se, w1, w1sr, w1se, taps,
     # nt, stream
     "wtt_modwt_fw": [_I, _I, _I, _I, _P, _L, _L, _P, _L, _L, _P, _L, _L, _P,

@@ -56,6 +56,7 @@ COUNTERS = {
     "ops.level1d": ("LAUNCHES", "PLAIN_CALLS"),
     "ops.tail1d": ("LAUNCHES", "PLAIN_CALLS"),
     "ops.axis0": ("LAUNCHES", "PLAIN_CALLS"),
+    "ops.level3d": ("LAUNCHES", "PLAIN_CALLS"),
     "ops.modwt1d": ("LAUNCHES", "PLAIN_CALLS"),
     "ops.scratch": ("ALLOCATED",),
     "parallel.sharded": ("STATS",),
